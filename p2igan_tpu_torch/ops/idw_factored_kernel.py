@@ -1,0 +1,189 @@
+"""Hand-written CUDA kernels of the factored IDW, with their plain versions.
+
+Counterpart of ``p2igan_tpu/ops/pallas/idw_factored_kernel.py`` (and of the
+tie rule in ``p2igan_tpu/ops/pallas/select.py``). Two kernels run on the stis
+serving path:
+
+* :func:`gauge_topk` -- per-pixel k nearest gauge slots, once per mask
+  (``csrc/gauge_topk.cu``);
+* :func:`combine_table_multi` -- the IDW densification of N windows that share
+  one mask, every generator forward (``csrc/combine_table_multi.cu``).
+
+Each wrapper runs its plain PyTorch version for CPU tensors and launches its
+kernel for CUDA tensors (or raises); there is no fallback between the two.
+``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+from .idw import _factored_combine_xla, frame_dz2_np
+
+BIG = 1e30  # taken / invalid slot distance^2 (csrc kBig)
+_BIG_I32 = int(np.iinfo(np.int32).max)
+MAX_K = 8          # csrc kMaxK
+MAX_CANDIDATES = 64  # csrc kMaxCand: kf * k
+
+
+def first_min_index(d: torch.Tensor, d_min: torch.Tensor, idx: torch.Tensor,
+                    dim: int, keepdim: bool = False) -> torch.Tensor:
+    """Lowest index along ``dim`` attaining the precomputed min ``d_min``.
+
+    The load-bearing parity rule of every IDW selection: an integer min over
+    the tied candidates' indices reproduces numpy/XLA first-index order, i.e.
+    the reference's flat frame-major ``nonzero`` order."""
+    big = torch.full_like(idx, _BIG_I32)
+    return torch.where(d == d_min, idx, big).amin(dim=dim, keepdim=keepdim)
+
+
+@functools.lru_cache(maxsize=16)
+def _frame_selection(D: int, k: int, tie_eps: float = 1e-5):
+    """Static per-query-z frame pruning (exact): the global top-k holds at most
+    k candidates of one gauge, and per gauge the candidate order across frames
+    is the frame-distance order, so only each z's nearest frames can ever be
+    selected. Frames within ``tie_eps`` of the k-th nearest are kept too: the
+    ULP-different dz^2 of symmetric +-z frames collapse to equal f32 distances
+    after the sqrt, and the lower frame index then wins the tie. All z share
+    one kf (shorter rows pad with the next-nearest frames).
+
+    Selected frames ascend, so the lowest-index tie rule stays the
+    reference's frame-major order. Returns (sel (D, kf) int32, kf)."""
+    fd = frame_dz2_np(D).astype(np.float64)
+    orders = [np.argsort(fd[z], kind="stable") for z in range(D)]
+    keep = []
+    for z in range(D):
+        kth = fd[z][orders[z][min(k, D) - 1]]
+        keep.append({int(f) for f in range(D) if fd[z][f] <= kth + tie_eps})
+    kf = min(max(max(len(s) for s in keep), k), D)
+    sel = []
+    for z in range(D):
+        s = keep[z]
+        for f in orders[z]:
+            if len(s) >= kf:
+                break
+            s.add(int(f))
+        sel.append(np.sort(np.fromiter(s, dtype=np.int32)))
+    return np.stack(sel).astype(np.int32), kf
+
+
+@functools.lru_cache(maxsize=16)
+def pruned_frame_table(D: int, k: int, device: str = "cpu"):
+    """(sel (D, kf) int32, fd2 (D, kf*k) f32) on ``device``: the pruned frames
+    of each query z and their squared z-distances in frame-major candidate
+    order. Cached so a forward pays no host-to-device copy."""
+    sel, kf = _frame_selection(D, k)
+    fd2 = np.repeat(np.take_along_axis(frame_dz2_np(D), sel, axis=1), k, axis=1)
+    return (torch.from_numpy(sel).to(device),
+            torch.from_numpy(np.ascontiguousarray(fd2, np.float32)).to(device))
+
+
+# -- gauge top-k --------------------------------------------------------------
+
+def gauge_topk_reference(qx, qy, gx, gy, penalty, k: int):
+    """Plain version of :func:`gauge_topk` (``p2igan_tpu/ops/idw.py:182-195``).
+
+    d2 = ((dx*dx) + (dy*dy)) + penalty; a valid slot adds 0 exactly and a
+    padding slot's 1e30 absorbs the distance, so this equals the reference's
+    ``where(valid, dx2 + dy2, 1e30)`` bit for bit."""
+    dx = qx[:, None] - gx[None, :]
+    dy = qy[:, None] - gy[None, :]
+    d = (dx * dx + dy * dy) + penalty[None, :]          # (HW, G)
+    col = torch.arange(d.shape[1], device=d.device, dtype=torch.int32)
+    col = col[None, :].expand_as(d)
+    gd2, gsel = [], []
+    for _ in range(k):
+        dmin = d.amin(dim=1)
+        idx = first_min_index(d, dmin[:, None], col, dim=1)
+        gd2.append(dmin)
+        gsel.append(idx)
+        d = torch.where(col == idx[:, None], torch.full_like(d, BIG), d)
+    return torch.stack(gd2), torch.stack(gsel)
+
+
+def gauge_topk(qx: torch.Tensor, qy: torch.Tensor, gx: torch.Tensor,
+               gy: torch.Tensor, penalty: torch.Tensor, k: int = 4):
+    """(HW,) pixel coords + (G,) gauge coords and validity penalties ->
+    per-pixel top-k gauge distances^2 (k, HW) f32 and slot ids (k, HW) int32,
+    ascending by distance, lowest slot first on ties."""
+    if qx.device.type == "cpu":
+        return gauge_topk_reference(qx, qy, gx, gy, penalty, k)
+    name = "gauge_topk"
+    cuda_lib.require_cuda(name, qx, qy, gx, gy, penalty)
+    HW, G = qx.shape[0], gx.shape[0]
+    if qy.shape != (HW,) or gy.shape != (G,) or penalty.shape != (G,):
+        raise ValueError(f"{name}: shape mismatch {qx.shape} {qy.shape} "
+                         f"{gx.shape} {gy.shape} {penalty.shape}")
+    if not 1 <= k <= min(MAX_K, G) or HW == 0 or 3 * 4 * G > 48 * 1024:
+        raise ValueError(f"{name}: unsupported k={k}, G={G}, HW={HW}")
+    gd2 = torch.empty((k, HW), device=qx.device, dtype=torch.float32)
+    gsel = torch.empty((k, HW), device=qx.device, dtype=torch.int32)
+    with torch.cuda.device(qx.device):
+        rc = cuda_lib.library().p2i_gauge_topk(
+            qx.data_ptr(), qy.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            penalty.data_ptr(), gd2.data_ptr(), gsel.data_ptr(), HW, G, k,
+            cuda_lib.stream_of(qx))
+    cuda_lib.check(rc, name)
+    gauge_topk.launches += 1
+    return gd2, gsel
+
+
+gauge_topk.launches = 0
+
+
+# -- multi-window table combine -----------------------------------------------
+
+def combine_table_multi_reference(gd2_t, gsel_t, tables, k: int,
+                                  rho: float = 2.0, tau: float = 0.05):
+    """Plain version of :func:`combine_table_multi`: the reference combine
+    (``_factored_combine_xla``) over ALL D frames, without the kernel's frame
+    pruning, so a pruning fault shows as a mismatch."""
+    N, D, G = tables.shape
+    HW = gd2_t.shape[1]
+    gsel = gsel_t.t().long()                                   # (HW, k)
+    # frame-major candidate values: cvals[n, p, f*k + s] = tables[n, f, gsel[p, s]]
+    cvals = tables[:, :, gsel].permute(0, 2, 1, 3).reshape(N, HW, D * k)
+    dz2 = torch.from_numpy(frame_dz2_np(D)).to(tables.device)
+    return _factored_combine_xla(gd2_t.t(), cvals, dz2, k, rho, tau)
+
+
+def combine_table_multi(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
+                        tables: torch.Tensor, k: int, rho: float = 2.0,
+                        tau: float = 0.05) -> torch.Tensor:
+    """(N, D, HW) IDW combine of N windows sharing one mask: gd2_t/gsel_t
+    (k, HW) from :func:`gauge_topk` (pixel-ordered), tables (N, D, G) values at
+    the gauge slots."""
+    if gd2_t.device.type == "cpu":
+        return combine_table_multi_reference(gd2_t, gsel_t, tables, k, rho, tau)
+    name = "combine_table_multi"
+    cuda_lib.require_cuda(name, gd2_t, gsel_t, tables,
+                          dtypes=(torch.float32, torch.int32, torch.float32))
+    N, D, G = tables.shape
+    HW = gd2_t.shape[1]
+    if gd2_t.shape != (k, HW) or gsel_t.shape != (k, HW):
+        raise ValueError(f"{name}: gd2/gsel must be (k={k}, HW), got "
+                         f"{tuple(gd2_t.shape)} {tuple(gsel_t.shape)}")
+    if not 1 <= k <= MAX_K or N == 0 or HW == 0:
+        raise ValueError(f"{name}: unsupported k={k}, N={N}, HW={HW}")
+    sel, fd2 = pruned_frame_table(D, k, str(gd2_t.device))
+    kf = sel.shape[1]
+    if kf * k > MAX_CANDIDATES:
+        raise ValueError(f"{name}: kf*k={kf * k} candidates exceed "
+                         f"{MAX_CANDIDATES}")
+    out = torch.empty((N, D, HW), device=gd2_t.device, dtype=torch.float32)
+    with torch.cuda.device(gd2_t.device):
+        rc = cuda_lib.library().p2i_combine_table_multi(
+            gd2_t.data_ptr(), gsel_t.data_ptr(), tables.data_ptr(),
+            sel.data_ptr(), fd2.data_ptr(), out.data_ptr(), N, D, G, HW, k, kf,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6),
+            cuda_lib.stream_of(gd2_t))
+    cuda_lib.check(rc, name)
+    combine_table_multi.launches += 1
+    return out
+
+
+combine_table_multi.launches = 0

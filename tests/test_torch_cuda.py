@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Marked ``cuda``; each test skips without a GPU. The repository's conftest
+imports jax, which the GPU machine lacks, so run these there with
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from p2igan_tpu_torch.ops import idw_factored_kernel as K
+from p2igan_tpu_torch.ops.idw import factored_prepare_full, gauge_geometry
+from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
+                                           maxpool2_duplicate_reference)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _mask(kind, H, W, rng):
+    m = np.zeros((H, W), np.float32)
+    if kind == "grid":
+        m[2::4, 1::4] = 1.0
+    elif kind == "empty":
+        pass
+    else:
+        m.reshape(-1)[rng.choice(H * W, int(kind), replace=False)] = 1.0
+    return m
+
+
+@pytest.mark.parametrize("kind", ["79", "grid", "2", "empty"])
+@pytest.mark.parametrize("H,W,k", [(32, 32, 4), (20, 13, 3), (16, 16, 1)])
+def test_gauge_topk_kernel_bitwise(dev, kind, H, W, k):
+    mask = torch.from_numpy(_mask(kind, H, W, np.random.default_rng(0))).to(dev)
+    args = gauge_geometry(mask, 128)[:5]
+    gd2, gsel = K.gauge_topk(*args, k=k)
+    rd2, rsel = K.gauge_topk_reference(*args, k=k)
+    assert torch.equal(gsel, rsel)
+    assert torch.equal(gd2.view(torch.int32), rd2.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["79", "grid"])
+def test_card_path_equals_cpu_path_bitwise(dev, kind):
+    """Gauge selection and combine on the card (kernels) equal the plain CPU
+    path bit for bit, so the card breaks every distance tie as the JAX
+    reference does on the CPU."""
+    rng = np.random.default_rng(2)
+    mask = torch.from_numpy(_mask(kind, 48, 40, rng))
+    tables = torch.from_numpy(rng.normal(size=(5, 16, 128)).astype(np.float32))
+    outs = []
+    for d in ("cpu", dev):
+        gd2, gsel, gpix = factored_prepare_full(mask.to(d), 128)
+        out = K.combine_table_multi(gd2.t().contiguous(), gsel.t().contiguous(),
+                                    tables.to(d), 4)
+        outs.append([t.cpu() for t in (gd2, gsel, gpix, out)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["79", "grid", "2"])
+@pytest.mark.parametrize("D,N,k", [(16, 8, 4), (4, 3, 4), (1, 1, 4), (16, 70, 3)])
+def test_combine_table_multi_kernel(dev, kind, D, N, k):
+    rng = np.random.default_rng(1)
+    mask = torch.from_numpy(_mask(kind, 24, 40, rng)).to(dev)
+    gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
+    tables = torch.from_numpy(rng.normal(size=(N, D, 128)).astype(np.float32)).to(dev)
+    args = (gd2.t().contiguous(), gsel.t().contiguous(), tables, k)
+    got = K.combine_table_multi(*args)
+    want = K.combine_table_multi_reference(*args)
+    # same selection and the same per-round arithmetic: bitwise equal
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+
+
+def test_kernel_wrappers_validate_and_count(dev):
+    x = torch.randn(2, 4, 8, 8, device=dev)
+    before = maxpool2_duplicate.launches
+    maxpool2_duplicate(x)
+    assert maxpool2_duplicate.launches == before + 1
+    with pytest.raises(ValueError):
+        maxpool2_duplicate(x[:, :, :7])  # odd H
+    with pytest.raises(ValueError):
+        maxpool2_duplicate(x.transpose(2, 3))  # not contiguous
+    with pytest.raises(TypeError):
+        maxpool2_duplicate(x.double())
+    q = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError):
+        K.gauge_topk(q, q, q[:4], q[:4], q[:4], k=9)
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 128, 128), (3, 5, 6, 10), (1, 1, 2, 2)])
+def test_pool_dup_kernel_bitwise(dev, shape):
+    x = torch.randn(shape, device=dev)
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[1::11] = -0.0
+    x.view(-1)[3::101] = float("nan")
+    got, want = maxpool2_duplicate(x), maxpool2_duplicate_reference(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
