@@ -2,13 +2,10 @@
 //
 // Replaces p2igan_tpu/ops/pallas/idw_factored_kernel.py::
 // factored_combine_table_multi_pallas (_combine_table_multi_kernel).
-// For query frame z and pixel p the candidates are (frame sel[z][fi], gauge slot
-// s): fi < kf pruned frames (ascending, from the host's _frame_selection) times
-// the k nearest slots of p (gd2/gsel). Candidate distance sqrt(gd2 + fd2), capped
-// at 1e15; k rounds of first-min extraction (lowest candidate index on ties,
-// which is the flat frame-major order of the reference); weights
-// w = 1/(d + tau)^2, zero at the 1e15 cap. Every window then reads its k values
-// from its own (D, G) table: out = (sum_r w_r * v_r) / (sum_r w_r + 1e-12).
+// The candidate selection (csrc/idw_select.cuh, shared with the backward) picks
+// k (frame, gauge slot) candidates per (pixel, z) with their IDW weights; every
+// window then reads its k values from its own (D, G) table:
+// out = (sum_r w_r * v_r) / (sum_r w_r + 1e-12).
 //
 // The TPU kernel gathers the values with one-hot matmuls on the MXU and reduces
 // over every candidate row; here the gather is a plain indexed load of the k
@@ -27,13 +24,12 @@
 // version's bit for bit.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "idw_select.cuh"
 
 namespace {
 
-constexpr int kMaxK = 8;
-constexpr int kMaxCand = 64;   // kf * k, one bit each in the taken mask
-constexpr float kBigD = 1e15f;  // == sqrtf(1e30f), the invalid-candidate cap
+using p2i::kMaxK;
 
 __global__ void combine_table_multi_kernel(const float* __restrict__ gd2,
                                            const int* __restrict__ gsel,
@@ -58,76 +54,11 @@ __global__ void combine_table_multi_kernel(const float* __restrict__ gd2,
 
   float g2[kMaxK];
   int gs[kMaxK];
-#pragma unroll
-  for (int s = 0; s < kMaxK; ++s) {
-    g2[s] = 0.0f;
-    gs[s] = 0;
-    if (s < k) {
-      g2[s] = gd2[s * HW + p];
-      gs[s] = gsel[s * HW + p];
-    }
-  }
-
-  uint64_t taken = 0;
-  float w_sum = 0.0f;
+  p2i::load_gauges(gd2, gsel, p, HW, k, g2, gs);
   float wr[kMaxK];
-  int cr[kMaxK];
-#pragma unroll
-  for (int r = 0; r < kMaxK; ++r) {
-    wr[r] = 0.0f;
-    cr[r] = 0;
-    if (r < k) {
-      float best = 0.0f;
-      int bc = -1;
-      for (int fi = 0; fi < kf; ++fi) {
-#pragma unroll
-        for (int s = 0; s < kMaxK; ++s) {
-          if (s < k) {
-            const int c = fi * k + s;
-            float d = kBigD;
-            if (!((taken >> c) & 1ull)) {
-              d = __fsqrt_rn(__fadd_rn(g2[s], s_fd2[c]));
-              d = d < kBigD ? d : kBigD;
-            }
-            if (bc < 0 || d < best) {  // strict <: lowest candidate wins a tie
-              best = d;
-              bc = c;
-            }
-          }
-        }
-      }
-      taken |= 1ull << bc;
-      float w = 0.0f;
-      if (best < kBigD) {
-        const float dt = __fadd_rn(best, tau);
-        if (rho_is_2) {
-          const float invd = __fdiv_rn(1.0f, dt);
-          w = __fmul_rn(invd, invd);
-        } else {
-          w = __fdiv_rn(1.0f, powf(dt, rho));
-        }
-      }
-      w_sum = __fadd_rn(w_sum, w);
-      wr[r] = w;
-      cr[r] = bc;
-    }
-  }
-  const float denom = __fadd_rn(w_sum, 1e-12f);
-
-  // (frame row, gauge slot) of each selected candidate, shared by all windows
   int off[kMaxK];
-#pragma unroll
-  for (int r = 0; r < kMaxK; ++r) {
-    off[r] = 0;
-    if (r < k) {
-      const int fi = cr[r] / k;
-      const int s = cr[r] - fi * k;
-      int g = gs[0];
-#pragma unroll
-      for (int s2 = 1; s2 < kMaxK; ++s2) g = (s2 == s) ? gs[s2] : g;
-      off[r] = s_sel[fi] * G + g;
-    }
-  }
+  const float denom = p2i::select_candidates(g2, gs, s_fd2, s_sel, G, k, kf, rho,
+                                             tau, rho_is_2, wr, off);
 
   const size_t plane = static_cast<size_t>(D) * G;
   for (int n = 0; n < N; ++n) {

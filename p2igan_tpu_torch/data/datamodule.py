@@ -1,11 +1,17 @@
-"""Serving data module: the test split and its prefetching loader (numpy).
+"""Data module: datasets and prefetching loaders per split (numpy).
 
 Counterpart of ``p2igan_tpu/data/datamodule.py`` (reference
-``p2igan_bench/data/dataloader.py``) for inference: the test split inherits
-train's w/h/mask and drops ``sample_length``; batches of one event, in file
-order unless ``data.test.shuffle``; per-item RNG from (seed, epoch, index);
-shorter sequences pad by repeating their last frame. The train/valid splits
-wait for the training port.
+``p2igan_bench/data/dataloader.py``):
+
+* routing: ``data.train.data_root`` ending in ``train.zarr`` selects the
+  sliding-window dataset with a seeded 80/20 train/valid split; otherwise
+  per-split ``EventDataset``s, where valid inherits train's
+  w/h/sample_length/mask and test drops ``sample_length``; test batches hold
+  one event, in file order unless ``data.test.shuffle``;
+* loading: a thread-pool prefetch loader producing numpy batches
+  (B, T, H, W, C); the per-item RNG is derived from (seed, epoch, index), so
+  the same seed gives the same batches and masks as the JAX package; shorter
+  sequences pad by repeating their last frame.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import numpy as np
 
 from p2igan_tpu.config import build_dataset_args, drop_sample_length, extract_shared_params
 
-from .stores import EventDataset, Item
+from .stores import EventDataset, Item, ZarrWindowDataset
 
 
 def pad_repeat_last(a: np.ndarray, length: int, axis: int = 0) -> np.ndarray:
@@ -31,12 +37,25 @@ def pad_repeat_last(a: np.ndarray, length: int, axis: int = 0) -> np.ndarray:
 
 def collate_pad_last(items: Sequence[Item]) -> Tuple[np.ndarray, ...]:
     """Stack items, padding each stream to its own longest item by repeating
-    the last frame."""
+    the last frame (the raw pipeline's frame-constant masks stay (1, H, W, 1)
+    per item)."""
     out = []
     for stream in zip(*items):
         max_len = max(arr.shape[0] for arr in stream)
         out.append(np.stack([pad_repeat_last(arr, max_len) for arr in stream]))
     return tuple(out)
+
+
+class Subset:
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
+        return self.dataset.__getitem__(self.indices[idx], rng=rng)
 
 
 class Loader:
@@ -94,22 +113,62 @@ class Loader:
 
 
 class P2IDataModule:
-    """The test split of the JAX package's data module, from a config dict."""
+    """Builds the train/valid/test datasets and loaders from a config dict."""
 
-    def __init__(self, cfg: Dict[str, Any]):
+    def __init__(self, cfg: Dict[str, Any], with_train: bool = True):
+        """``with_train=False`` builds the test split only (serving, whose
+        config may name a train store that does not exist)."""
         self.cfg = cfg
         data_cfg = cfg["data"]
         self.num_workers = cfg.get("train", {}).get("num_workers", 4)
         self.seed = cfg.get("seed", 42)
-        shared = extract_shared_params(build_dataset_args(data_cfg["train"]))
-        self.test_dataset = None
-        self.test_shuffle = False
+        self.train_args = build_dataset_args(data_cfg["train"])
+        shared = extract_shared_params(self.train_args)
+        self.train_dataset = self.valid_dataset = self.test_dataset = None
+        self.valid_shuffle = self.test_shuffle = False
+
+        if with_train and str(self.train_args.get("data_root", "")).endswith("train.zarr"):
+            self.train_dataset, self.valid_dataset = self._split_train_valid(
+                ZarrWindowDataset(self.train_args), seed=self.seed)
+        elif with_train:
+            self.train_dataset = EventDataset(self.train_args)
+            valid_cfg = data_cfg.get("valid")
+            if valid_cfg:
+                valid_args = build_dataset_args(valid_cfg, defaults=shared)
+                self.valid_shuffle = bool(valid_cfg.get("shuffle", False))
+                self.valid_dataset = EventDataset(valid_args)
+
         test_cfg = data_cfg.get("test")
         if test_cfg:
             test_args = build_dataset_args(test_cfg,
                                            defaults=drop_sample_length(shared))
             self.test_shuffle = bool(test_cfg.get("shuffle", False))
             self.test_dataset = EventDataset(test_args)
+
+    @staticmethod
+    def _split_train_valid(dataset, seed: int = 42, train_ratio: float = 0.8):
+        """Seeded random 80/20 split (reference dataloader.py:94-110)."""
+        total = len(dataset)
+        if total <= 1:
+            return dataset, None
+        val_size = int(total * (1 - train_ratio))
+        val_size = min(max(val_size, 1), total - 1)
+        indices = np.random.default_rng(seed).permutation(total).tolist()
+        return (Subset(dataset, indices[:total - val_size]),
+                Subset(dataset, indices[total - val_size:]))
+
+    def train_dataloader(self) -> Optional[Loader]:
+        if self.train_dataset is None:
+            return None
+        return Loader(self.train_dataset, self.cfg["train"]["batch_size"],
+                      shuffle=True, seed=self.seed, num_workers=self.num_workers)
+
+    def val_dataloader(self) -> Optional[Loader]:
+        if self.valid_dataset is None:
+            return None
+        return Loader(self.valid_dataset, self.cfg["train"]["batch_size"],
+                      shuffle=self.valid_shuffle, seed=self.seed + 1,
+                      num_workers=self.num_workers)
 
     def test_dataloader(self) -> Optional[Loader]:
         if self.test_dataset is None:

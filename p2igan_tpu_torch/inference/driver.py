@@ -197,7 +197,7 @@ def run_inference(cfg: Dict[str, Any], *, checkpoint: Optional[str] = None,
         model_dir or cfg.get("save_dir", "weights"), checkpoint)
     logging.info("Using checkpoint %s", checkpoint_path)
 
-    test_loader = P2IDataModule(cfg).test_dataloader()
+    test_loader = P2IDataModule(cfg, with_train=False).test_dataloader()
     if test_loader is None:
         raise RuntimeError("Test dataloader is not configured. Ensure data.test exists.")
     if test_loader.shuffle:

@@ -1,10 +1,11 @@
-"""Weights across packages: JAX/flax P2I generator variables -> the port's
-(reference-layout) torch state_dict.
+"""Weights across packages: JAX/flax P2I variables -> the port's
+(reference-layout) torch state_dicts, and JAX optimizer state -> the port's.
 
-The inverse of ``p2igan_tpu/models/torch_import.py::import_p2igan_generator``.
-Accounting is strict both ways: every flax leaf must be used and every
-state_dict key of the structure must be filled, else it raises. ``D_diag``
-is a constant of the DO-conv and is not emitted.
+``state_dict_from_jax`` and ``disc_state_dict_from_jax`` are the inverses of
+``p2igan_tpu/models/torch_import.py::import_p2igan_generator`` and
+``import_p2igan_discriminator``. Accounting is strict both ways: every flax
+leaf must be used and every state_dict key of the structure must be filled,
+else it raises. ``D_diag`` is a constant of the DO-conv and is not emitted.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 class _Exporter:
@@ -35,7 +37,7 @@ class _Exporter:
         return self.leaves.pop(path)
 
     def put(self, key: str, value: np.ndarray) -> None:
-        self.state[key] = torch.from_numpy(np.ascontiguousarray(value))
+        self.state[key] = torch.from_numpy(np.array(value, order="C"))  # keeps 0-d
 
     def finish(self) -> Dict[str, torch.Tensor]:
         if self.leaves:
@@ -79,3 +81,66 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                                            (0, 3, 1, 2)))
         ex.conv((f"UP_{k}", "proj"), f"UP.{k}.proj", (3, 2, 0, 1))
     return ex.finish()
+
+
+# spectral-norm conv kernels: HWIO -> OIHW, DHWIO -> OIDHW
+_SN_PERM = {"d2d": (3, 2, 0, 1), "d3d": (4, 3, 0, 1, 2)}
+
+
+def _disc_params(ex: _Exporter) -> None:
+    for branch, perm in _SN_PERM.items():
+        for idx in (0, 2, 4, 6, 8):
+            ex.conv((f"{branch}_{idx}",), f"{branch}.{idx}", perm)
+            key = f"{branch}.{idx}.weight"
+            ex.state[f"{key}_orig"] = ex.state.pop(key)
+    for name in ("alpha2d", "alpha3d"):
+        ex.put(name, ex.take((name,)))
+
+
+def disc_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax P2IDiscriminator variables ({"params", "spectral"}) -> the
+    reference-layout state_dict the port's ``P2IDiscriminator`` loads,
+    spectral ``u``/``v`` included."""
+    ex = _Exporter(variables["params"])
+    _disc_params(ex)
+    spectral = _Exporter(variables["spectral"])
+    for branch in _SN_PERM:
+        for idx in (0, 2, 4, 6, 8):
+            for vec in ("u", "v"):
+                ex.put(f"{branch}.{idx}.weight_{vec}",
+                       spectral.take((f"{branch}_{idx}", vec)))
+    spectral.finish()
+    return ex.finish()
+
+
+def params_from_jax(module: nn.Module, params: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """A flax params-shaped tree (the parameters, or an optimizer moment of
+    them) -> {port parameter name: tensor}."""
+    from .p2igan import P2IDiscriminator, P2IGenerator
+
+    if isinstance(module, P2IGenerator):
+        return state_dict_from_jax({"params": params})
+    if isinstance(module, P2IDiscriminator):
+        ex = _Exporter(params)
+        _disc_params(ex)
+        return ex.finish()
+    raise TypeError(f"no JAX layout known for {type(module).__name__}")
+
+
+def optimizer_state_from_jax(opt_state: Any, optimizer: torch.optim.Optimizer,
+                             module: nn.Module) -> None:
+    """Load the JAX package's mu-free Adam state (``make_optimizer`` at
+    beta1=0: a chain whose first element is ``_AdamNoMuState(count, nu)``)
+    into the port's ``AdamNoMu``, which must have been built over
+    ``module.parameters()`` in order."""
+    count, nu = int(np.asarray(opt_state[0].count)), opt_state[0].nu
+    moments = params_from_jax(module, nu)
+    names = [name for name, _ in module.named_parameters()]
+    if set(moments) != set(names):
+        raise ValueError(f"optimizer moments {sorted(set(moments) ^ set(names))} "
+                         f"do not match the module's parameters")
+    state = optimizer.state_dict()
+    state["state"] = {i: {"step": count, "nu": moments[name]}
+                      for i, name in enumerate(names)}
+    optimizer.load_state_dict(state)

@@ -1,7 +1,8 @@
-"""P2I-GAN generator (PyTorch, NCHW inside, (B, T, H, W, C) at the API).
+"""P2I-GAN generator and discriminator (PyTorch, NC[T]HW inside,
+(B, T, H, W, C) at the API).
 
 Counterpart of ``p2igan_tpu/models/p2igan.py`` (reference
-``p2igan_bench/models/p2igan.py:72-112``) on the stis serving path:
+``p2igan_bench/models/p2igan.py:72-173``). The generator, on the stis path:
 
   flatten T into channels -> InputBlock IDW densification -> grouped 3x3
   DO-conv + repeat-interleave(4) skip -> 3x DownsampleDuplicateChannels pyramid
@@ -13,7 +14,9 @@ Attribute names reproduce the reference state_dict keys
 (``input.layers.{i}.conv``, ``Convsin.0.main.0.{W,D}``,
 ``Decoder.{k}.layers.{i}.main.{j}.main.0.{W,D}``, ``UP.{k}.{pos,proj}``,
 ``ConvsOut.0.main.0.W``), so a reference ``.pt`` loads with
-``load_state_dict``.
+``load_state_dict``. The discriminator's keys are the reference's too
+(``d2d.{0,2,4,6,8}`` and ``d3d.{...}`` with ``weight_orig``/``bias``/
+``weight_u``/``weight_v``, ``alpha2d``, ``alpha3d``).
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ import logging
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.doconv import DOConv2d
 from ..ops.layers import (AttentionBlock, BasicConvDO, InputBlock, ResBlockDO,
                           UPPos, downsample_duplicate_channels)
+from ..ops.spectral_norm import SNConv
 
 
 def _data_cfg(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -208,3 +213,70 @@ class P2IGenerator(nn.Module):
         z = self.ConvsOut(self.Decoder[0](res3))
         out = torch.tanh(z)
         return out.reshape(b, t, c, h, w).permute(0, 1, 3, 4, 2)
+
+
+class P2IDiscriminator(nn.Module):
+    """Dual-branch (2-D over the frame sequence, 3-D spatiotemporal)
+    spectral-norm critic: x (B, T, H, W, C) -> logits (B, N).
+
+    ``in_channels`` is C*T (the 2-D branch's input width), ``channels`` C.
+    ``update_stats=True`` advances every layer's power iteration (training
+    forwards). ``alpha3d`` exists in the reference but is unused."""
+
+    def __init__(self, in_channels: int = 16, channels: int = 1,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        lrelu = lambda: nn.LeakyReLU(0.2)  # noqa: E731
+        self.d2d = nn.Sequential(
+            SNConv(in_channels, 64, (3, 3), 1, 1, device=device), lrelu(),
+            SNConv(64, 128, (3, 3), 2, 1, device=device), lrelu(),
+            SNConv(128, 256, (3, 3), 2, 1, device=device), lrelu(),
+            SNConv(256, 256, (3, 3), 1, 1, device=device), lrelu(),
+            SNConv(256, 1, (3, 3), 1, 1, device=device))
+        self.d3d = nn.Sequential(
+            SNConv(channels, 32, (3, 3, 3), (1, 2, 2), 1, device=device), lrelu(),
+            SNConv(32, 64, (3, 3, 3), (1, 2, 2), 1, device=device), lrelu(),
+            SNConv(64, 128, (3, 3, 3), (1, 2, 2), 1, device=device), lrelu(),
+            SNConv(128, 128, (3, 3, 3), (2, 1, 1), 1, device=device), lrelu(),
+            SNConv(128, 1, (1, 1, 1), 1, 0, device=device))
+        self.alpha2d = nn.Parameter(torch.zeros((), device=device))
+        self.alpha3d = nn.Parameter(torch.zeros((), device=device))
+        self.reset_parameters(generator)
+
+    @classmethod
+    def from_config(cls, config: Dict[str, Any], **kw) -> "P2IDiscriminator":
+        """The 2-D branch takes in_channels * sample_length channels."""
+        model_cfg = config.get("model", {})
+        length = _data_cfg(config).get("sample_length", 16) or 16
+        c = model_cfg.get("in_channels", 1)
+        return cls(in_channels=c * length, channels=c, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Reference init (P2IDiscriminator.init_weights), in module order."""
+        for m in self.modules():
+            if isinstance(m, SNConv):
+                m.reset_parameters(generator)
+        self.alpha2d.zero_()
+        self.alpha3d.zero_()
+
+    @staticmethod
+    def _branch(layers: nn.Sequential, x: torch.Tensor,
+                update_stats: bool) -> torch.Tensor:
+        for layer in layers:
+            x = layer(x, update_stats) if isinstance(layer, SNConv) else layer(x)
+        return x
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        # 2-D branch over (B, T*C, H, W), channel = t*C + c
+        y = x.permute(0, 1, 4, 2, 3).reshape(b, t * c, h, w)
+        out2d = self._branch(self.d2d, y, update_stats)           # (B, 1, h', w')
+        # 3-D branch over (B, C, T, H, W), mean over the remaining frames
+        z = self._branch(self.d3d, x.permute(0, 4, 1, 2, 3), update_stats)
+        out3d = z.mean(dim=2)                                     # (B, 1, h'', w'')
+        if out3d.shape[-2:] != out2d.shape[-2:]:
+            out3d = F.interpolate(out3d, size=out2d.shape[-2:], mode="bilinear",
+                                  align_corners=False)
+        fused = torch.sigmoid(self.alpha2d) * out2d + out3d
+        return fused.reshape(b, -1)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded through ``ctypes``. The library is built at first use into
+interface, loaded through ``ctypes``; every ``.cu`` file compiles in its own
+``nvcc`` process, all started together, and one more links them. The library is built at first use into
 ``build/p2igan_tpu_torch/`` at the repository root and keyed by a hash of the
 sources and flags, so a checkout builds exactly its own kernels and a source
 change can never run a stale binary. Nothing here runs at import time: the CPU
@@ -26,7 +27,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2igan_tpu_torch"
 # rounding with __f*_rn intrinsics); never --use_fast_math, whose approximate
 # sqrt/division would flip the IDW's k-th-neighbour ties.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -34,12 +35,16 @@ _BUILD_LOG = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "p2i_gauge_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "p2i_combine_table_multi": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _I, _P],
+    "p2i_combine_table_multi_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _F, _F, _I, _I, _I, _P],
     "p2i_maxpool2_duplicate": [_P, _P, _I, _I, _I, _I, _P],
+    "p2i_decode_normalize_mask": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
 }
 
 
@@ -66,16 +71,38 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libp2igan_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the first failure's output.
+    Returns their combined compiler output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _build(out: Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, compiles = [], []
+    for src in _sources():
+        if src.suffix == ".cu":
+            obj = out.parent / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    tmp = out.parent / f"{tag}.tmp.so"
+    try:
+        log = _run(compiles)
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return proc.stdout + proc.stderr
+    return log
 
 
 def library() -> ctypes.CDLL:

@@ -1,13 +1,16 @@
 """Hand-written CUDA kernels of the factored IDW, with their plain versions.
 
 Counterpart of ``p2igan_tpu/ops/pallas/idw_factored_kernel.py`` (and of the
-tie rule in ``p2igan_tpu/ops/pallas/select.py``). Two kernels run on the stis
-serving path:
+tie rule in ``p2igan_tpu/ops/pallas/select.py``). Three kernels run on the stis
+paths:
 
 * :func:`gauge_topk` -- per-pixel k nearest gauge slots, once per mask
   (``csrc/gauge_topk.cu``);
 * :func:`combine_table_multi` -- the IDW densification of N windows that share
-  one mask, every generator forward (``csrc/combine_table_multi.cu``).
+  one mask, every generator forward (``csrc/combine_table_multi.cu``); a
+  ``torch.autograd.Function`` whose backward is
+* :func:`combine_table_multi_bwd` -- d_tables from the output cotangent, every
+  generator backward (``csrc/combine_table_multi_bwd.cu``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors (or raises); there is no fallback between the two.
@@ -28,6 +31,8 @@ BIG = 1e30  # taken / invalid slot distance^2 (csrc kBig)
 _BIG_I32 = int(np.iinfo(np.int32).max)
 MAX_K = 8          # csrc kMaxK
 MAX_CANDIDATES = 64  # csrc kMaxCand: kf * k
+BWD_PIXELS_PER_BLOCK = 128      # csrc/combine_table_multi_bwd.cu kThreads
+BWD_TILE_BYTES = 96 * 1024      # its shared-memory accumulation tile
 
 
 def first_min_index(d: torch.Tensor, d_min: torch.Tensor, idx: torch.Tensor,
@@ -151,29 +156,34 @@ def combine_table_multi_reference(gd2_t, gsel_t, tables, k: int,
     return _factored_combine_xla(gd2_t.t(), cvals, dz2, k, rho, tau)
 
 
-def combine_table_multi(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
-                        tables: torch.Tensor, k: int, rho: float = 2.0,
-                        tau: float = 0.05) -> torch.Tensor:
-    """(N, D, HW) IDW combine of N windows sharing one mask: gd2_t/gsel_t
-    (k, HW) from :func:`gauge_topk` (pixel-ordered), tables (N, D, G) values at
-    the gauge slots."""
-    if gd2_t.device.type == "cpu":
-        return combine_table_multi_reference(gd2_t, gsel_t, tables, k, rho, tau)
-    name = "combine_table_multi"
-    cuda_lib.require_cuda(name, gd2_t, gsel_t, tables,
-                          dtypes=(torch.float32, torch.int32, torch.float32))
-    N, D, G = tables.shape
+def _check_combine_args(name, gd2_t, gsel_t, k):
     HW = gd2_t.shape[1]
     if gd2_t.shape != (k, HW) or gsel_t.shape != (k, HW):
         raise ValueError(f"{name}: gd2/gsel must be (k={k}, HW), got "
                          f"{tuple(gd2_t.shape)} {tuple(gsel_t.shape)}")
-    if not 1 <= k <= MAX_K or N == 0 or HW == 0:
-        raise ValueError(f"{name}: unsupported k={k}, N={N}, HW={HW}")
-    sel, fd2 = pruned_frame_table(D, k, str(gd2_t.device))
+    if not 1 <= k <= MAX_K or HW == 0:
+        raise ValueError(f"{name}: unsupported k={k}, HW={HW}")
+
+
+def _frame_table(name, D, k, device):
+    sel, fd2 = pruned_frame_table(D, k, str(device))
     kf = sel.shape[1]
     if kf * k > MAX_CANDIDATES:
         raise ValueError(f"{name}: kf*k={kf * k} candidates exceed "
                          f"{MAX_CANDIDATES}")
+    return sel, fd2, kf
+
+
+def _combine_table_multi_cuda(gd2_t, gsel_t, tables, k, rho, tau):
+    name = "combine_table_multi"
+    cuda_lib.require_cuda(name, gd2_t, gsel_t, tables,
+                          dtypes=(torch.float32, torch.int32, torch.float32))
+    _check_combine_args(name, gd2_t, gsel_t, k)
+    N, D, G = tables.shape
+    HW = gd2_t.shape[1]
+    if N == 0:
+        raise ValueError(f"{name}: no windows")
+    sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
     out = torch.empty((N, D, HW), device=gd2_t.device, dtype=torch.float32)
     with torch.cuda.device(gd2_t.device):
         rc = cuda_lib.library().p2i_combine_table_multi(
@@ -186,4 +196,95 @@ def combine_table_multi(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
     return out
 
 
+class _CombineTableMulti(torch.autograd.Function):
+    """The combine on both devices: forward is the kernel (CUDA) or the plain
+    version (CPU); backward is :func:`combine_table_multi_bwd`, which
+    dispatches the same way. gd2_t, gsel_t and the frame table get no
+    gradient, as in the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, gd2_t, gsel_t, tables, k, rho, tau):
+        ctx.save_for_backward(gd2_t, gsel_t)
+        ctx.args = (tables.shape[2], k, rho, tau)
+        if gd2_t.device.type == "cpu":
+            return combine_table_multi_reference(gd2_t, gsel_t, tables, k, rho, tau)
+        return _combine_table_multi_cuda(gd2_t, gsel_t, tables, k, rho, tau)
+
+    @staticmethod
+    def backward(ctx, g):
+        gd2_t, gsel_t = ctx.saved_tensors
+        G, k, rho, tau = ctx.args
+        d_tables = None
+        if ctx.needs_input_grad[2]:
+            d_tables = combine_table_multi_bwd(gd2_t, gsel_t, g.contiguous(), G,
+                                               k, rho, tau)
+        return None, None, d_tables, None, None, None
+
+
+def combine_table_multi(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
+                        tables: torch.Tensor, k: int, rho: float = 2.0,
+                        tau: float = 0.05) -> torch.Tensor:
+    """(N, D, HW) IDW combine of N windows sharing one mask: gd2_t/gsel_t
+    (k, HW) from :func:`gauge_topk` (pixel-ordered), tables (N, D, G) values at
+    the gauge slots. Differentiable in ``tables``."""
+    return _CombineTableMulti.apply(gd2_t, gsel_t, tables, k, rho, tau)
+
+
 combine_table_multi.launches = 0
+
+
+# -- its backward -------------------------------------------------------------
+
+def combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G: int, k: int,
+                                      rho: float = 2.0, tau: float = 0.05):
+    """Plain version of :func:`combine_table_multi_bwd`: autograd of
+    :func:`combine_table_multi_reference` (all D*k candidates, no frame
+    pruning, so a pruning fault of the kernel shows as a mismatch). The
+    combine is linear in the tables, so any table values give the same
+    gradient; zeros are used."""
+    N, D, _ = g.shape
+    tables = torch.zeros((N, D, G), dtype=torch.float32, device=g.device,
+                         requires_grad=True)
+    with torch.enable_grad():
+        out = combine_table_multi_reference(gd2_t, gsel_t, tables, k, rho, tau)
+        (d_tables,) = torch.autograd.grad(out, tables, g)
+    return d_tables
+
+
+def combine_table_multi_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
+                            g: torch.Tensor, G: int, k: int, rho: float = 2.0,
+                            tau: float = 0.05) -> torch.Tensor:
+    """d_tables (N, D, G) of :func:`combine_table_multi` from its output
+    cotangent g (N, D, HW); the selection is recomputed, not saved."""
+    if gd2_t.device.type == "cpu":
+        return combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G, k, rho, tau)
+    name = "combine_table_multi_bwd"
+    cuda_lib.require_cuda(name, gd2_t, gsel_t, g,
+                          dtypes=(torch.float32, torch.int32, torch.float32))
+    _check_combine_args(name, gd2_t, gsel_t, k)
+    N, D, HW = g.shape
+    if HW != gd2_t.shape[1] or N == 0 or G < 1:
+        raise ValueError(f"{name}: cotangent {tuple(g.shape)} does not fit "
+                         f"HW={gd2_t.shape[1]}, G={G}")
+    sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
+    # windows per block: the accumulation tile (n_tile, D, G) f32 stays within
+    # BWD_TILE_BYTES of shared memory
+    n_tile = min(N, BWD_TILE_BYTES // (4 * D * G))
+    if n_tile < 1:
+        raise ValueError(f"{name}: a (D={D}, G={G}) tile exceeds "
+                         f"{BWD_TILE_BYTES} bytes of shared memory")
+    nblk = -(-HW // BWD_PIXELS_PER_BLOCK)
+    parts = torch.empty((nblk, N, D, G), device=g.device, dtype=torch.float32)
+    out = torch.empty((N, D, G), device=g.device, dtype=torch.float32)
+    with torch.cuda.device(g.device):
+        rc = cuda_lib.library().p2i_combine_table_multi_bwd(
+            gd2_t.data_ptr(), gsel_t.data_ptr(), g.data_ptr(), sel.data_ptr(),
+            fd2.data_ptr(), parts.data_ptr(), out.data_ptr(), N, D, G, HW, k, kf,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), n_tile, nblk,
+            cuda_lib.stream_of(g))
+    cuda_lib.check(rc, name)
+    combine_table_multi_bwd.launches += 1
+    return out
+
+
+combine_table_multi_bwd.launches = 0

@@ -4,6 +4,8 @@ Counterpart of ``p2igan_tpu/ops/pallas/pool_dup.py``. The generator's three
 pyramid downsamples run through :func:`maxpool2_duplicate`: its plain PyTorch
 version for CPU tensors, the hand-written kernel ``csrc/pool_dup.cu`` for CUDA
 tensors (or it raises). ``maxpool2_duplicate.launches`` counts kernel launches.
+It is a ``torch.autograd.Function`` on both devices; its backward is the plain
+version's VJP, as in the JAX package (no TPU kernel there either).
 """
 
 from __future__ import annotations
@@ -19,11 +21,7 @@ def maxpool2_duplicate_reference(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2).repeat_interleave(2, dim=1)
 
 
-def maxpool2_duplicate(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) float32 -> (N, 2C, H/2, W/2): 2x2 max pool, then every
-    channel duplicated consecutively (reference DownsampleDuplicateChannels)."""
-    if x.device.type == "cpu":
-        return maxpool2_duplicate_reference(x)
+def _maxpool2_duplicate_cuda(x: torch.Tensor) -> torch.Tensor:
     name = "maxpool2_duplicate"
     cuda_lib.require_cuda(name, x)
     if x.dim() != 4:
@@ -40,6 +38,35 @@ def maxpool2_duplicate(x: torch.Tensor) -> torch.Tensor:
     cuda_lib.check(rc, name)
     maxpool2_duplicate.launches += 1
     return out
+
+
+class _MaxPool2Duplicate(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward, on
+    both devices: recompute the plain forward and take its VJP
+    (``p2igan_tpu/ops/pallas/pool_dup.py`` does the same), so on ties the
+    gradient goes to the element the plain max pool chose."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type == "cpu":
+            return maxpool2_duplicate_reference(x)
+        return _maxpool2_duplicate_cuda(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            (dx,) = torch.autograd.grad(maxpool2_duplicate_reference(xr), xr, g)
+        return dx
+
+
+def maxpool2_duplicate(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) float32 -> (N, 2C, H/2, W/2): 2x2 max pool, then every
+    channel duplicated consecutively (reference DownsampleDuplicateChannels).
+    Differentiable."""
+    return _MaxPool2Duplicate.apply(x)
 
 
 maxpool2_duplicate.launches = 0

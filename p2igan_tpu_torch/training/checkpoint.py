@@ -1,18 +1,48 @@
-"""Checkpoint resolution and loading for the port.
+"""Checkpoint save, load and resolution for the port.
 
-``resolve_checkpoint`` follows ``p2igan_tpu/training/checkpoint.py`` (explicit
-path, else ``latest.ckpt``, else the newest ``*.ckpt``/``*.msgpack``/``*.pt``
-under the directory; reference scripts/infer.py:61-80). Torch ``.pt`` files
-load with ``torch.load(weights_only=True)``.
+``save_checkpoint`` / ``load_checkpoint_raw`` follow
+``p2igan_tpu/training/checkpoint.py`` with the JAX trainer's payload keys
+(``epoch``, ``global_step``, ``best_val``, ``generator{params,extra}``,
+``optimizer_g``, ``discriminator{params,extra}``, ``optimizer_d``) in torch's
+format (``torch.save``; loaded with ``weights_only=True``). JAX msgpack
+checkpoints do not load: they raise and name the conversion.
+``resolve_checkpoint`` follows the JAX package (explicit path, else
+``latest.ckpt``, else the newest ``*.ckpt``/``*.msgpack``/``*.pt`` under the
+directory; reference scripts/infer.py:61-80).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import zipfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
+
+_MSGPACK_HINT = ("the PyTorch port loads torch-format checkpoints only. A JAX "
+                 "msgpack checkpoint can be converted on a host with flax: "
+                 "restore it with p2igan_tpu.training.checkpoint.load_checkpoint_raw, "
+                 "then p2igan_tpu_torch.models.convert.state_dict_from_jax, then "
+                 "torch.save")
+
+
+def save_checkpoint(path: str | Path, payload: Dict[str, Any]) -> None:
+    """torch.save ``payload`` to ``path`` atomically (write, then rename)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + f".{os.getpid()}.tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint_raw(path: str | Path) -> Dict[str, Any]:
+    """The payload of a torch-format checkpoint, on the CPU."""
+    path = Path(path)
+    if not zipfile.is_zipfile(path):
+        raise NotImplementedError(f"{path}: {_MSGPACK_HINT}")
+    return torch.load(str(path), map_location="cpu", weights_only=True)
 
 
 def resolve_checkpoint(save_dir: str | Path,
@@ -39,17 +69,15 @@ def resolve_checkpoint(save_dir: str | Path,
 
 
 def load_generator_state(path: str | Path) -> Dict[str, torch.Tensor]:
-    """Generator state_dict from a torch ``.pt`` (a bare state_dict or the
-    reference trainer's dict with a ``generator`` entry)."""
+    """Generator state_dict from a torch checkpoint: a bare state_dict, the
+    reference trainer's dict with a ``generator`` entry, or the port's
+    trainer payload (``generator.params``)."""
     path = Path(path)
-    if path.suffix != ".pt":
-        raise NotImplementedError(
-            f"{path}: the PyTorch port loads torch .pt checkpoints only. A JAX "
-            f"msgpack checkpoint can be converted on a host with flax: "
-            f"restore it with p2igan_tpu.training.checkpoint.load_checkpoint_raw, "
-            f"then p2igan_tpu_torch.models.convert.state_dict_from_jax, then "
-            f"torch.save")
+    if path.suffix != ".pt" and not zipfile.is_zipfile(path):
+        raise NotImplementedError(f"{path}: {_MSGPACK_HINT}")
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "generator" in ckpt:
         ckpt = ckpt["generator"]
+        if isinstance(ckpt, dict) and set(ckpt) == {"params", "extra"}:
+            ckpt = {**ckpt["params"], **ckpt["extra"]}
     return ckpt

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from p2igan_tpu_torch.ops import idw_factored_kernel as K
+from p2igan_tpu_torch.ops.decode_mask import (decode_normalize_mask,
+                                              decode_normalize_mask_reference)
 from p2igan_tpu_torch.ops.idw import factored_prepare_full, gauge_geometry
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
@@ -106,3 +108,72 @@ def test_pool_dup_kernel_bitwise(dev, shape):
     x.view(-1)[3::101] = float("nan")
     got, want = maxpool2_duplicate(x), maxpool2_duplicate_reference(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["79", "grid", "2"])
+@pytest.mark.parametrize("D,N,k", [(16, 12, 4), (4, 3, 4), (16, 40, 3), (1, 1, 4)])
+def test_combine_table_multi_bwd_kernel(dev, kind, D, N, k):
+    """Kernel #4 against its plain version (autograd of the unpruned plain
+    combine): max abs error <= 1e-5 x max|plain|, because the sums run in
+    another order (shared-memory atomics, then per-block partials)."""
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(_mask(kind, 40, 24, rng)).to(dev)
+    gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
+    g = torch.from_numpy(rng.normal(size=(N, D, 40 * 24)).astype(np.float32)).to(dev)
+    args = (gd2.t().contiguous(), gsel.t().contiguous(), g, 128, k)
+    before = K.combine_table_multi_bwd.launches
+    got = K.combine_table_multi_bwd(*args)
+    want = K.combine_table_multi_bwd_reference(*args)
+    assert K.combine_table_multi_bwd.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape,mshape", [
+    ((12, 16, 128, 128, 1), (12, 1, 128, 128, 1)),   # frame-constant, 4-wide
+    ((12, 16, 128, 128, 1), (12, 16, 128, 128, 1)),  # full mask
+    ((2, 3, 5, 7, 1), (2, 1, 5, 7, 1)),               # odd plane: 1-wide path
+])
+@pytest.mark.parametrize("mdtype", [np.uint8, np.float32, np.bool_])
+def test_decode_normalize_mask_kernel_bitwise(dev, shape, mshape, mdtype):
+    """Kernel #11 against the host pipeline's numpy decode: bitwise."""
+    rng = np.random.default_rng(6)
+    u8 = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    mask = (rng.random(mshape) < 0.3).astype(mdtype)
+    video, masked = decode_normalize_mask(torch.from_numpy(u8).to(dev),
+                                          torch.from_numpy(mask).to(dev))
+    host = u8.astype(np.float32) / 255.0
+    want = host * mask.astype(np.float32)
+    assert np.array_equal(video.cpu().numpy().view(np.int32), host.view(np.int32))
+    assert np.array_equal(masked.cpu().numpy().view(np.int32), want.view(np.int32))
+    plain = decode_normalize_mask_reference(torch.from_numpy(u8).to(dev),
+                                            torch.from_numpy(mask).to(dev))
+    assert np.array_equal(plain[0].cpu().numpy().view(np.int32), host.view(np.int32))
+
+
+def test_gradients_through_both_functions(dev):
+    """combine_table_multi and maxpool2_duplicate carry autograd on the card:
+    their gradients equal the plain versions' (the combine within 1e-5 x max,
+    the pool bitwise)."""
+    rng = np.random.default_rng(7)
+    mask = torch.from_numpy(_mask("79", 32, 32, rng)).to(dev)
+    gd2, gsel, _ = factored_prepare_full(mask, 128)
+    gd2_t, gsel_t = gd2.t().contiguous(), gsel.t().contiguous()
+    tables = torch.randn(6, 16, 128, device=dev, requires_grad=True)
+    plain = tables.detach().clone().requires_grad_(True)
+    out = K.combine_table_multi(gd2_t, gsel_t, tables, 4)
+    assert type(out.grad_fn).__name__ == "_CombineTableMultiBackward"
+    w = torch.randn_like(out)
+    (out * w).sum().backward()
+    (K.combine_table_multi_reference(gd2_t, gsel_t, plain, 4) * w).sum().backward()
+    assert float((tables.grad - plain.grad).abs().max()) <= \
+        1e-5 * float(plain.grad.abs().max())
+
+    x = torch.randn(4, 8, 16, 16, device=dev)
+    x.view(-1)[::3] = 0.0  # ties
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    y = maxpool2_duplicate(xa)
+    assert type(y.grad_fn).__name__ == "_MaxPool2DuplicateBackward"
+    gy = torch.randn_like(y)
+    y.backward(gy)
+    maxpool2_duplicate_reference(xb).backward(gy)
+    assert torch.equal(xa.grad, xb.grad)

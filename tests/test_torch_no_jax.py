@@ -19,7 +19,7 @@ mods = [info.name for info in pkgutil.walk_packages(p2igan_tpu_torch.__path__,
                                                     "p2igan_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
-for script in ("scripts/infer_torch.py", "chip_smoke.py"):
+for script in ("scripts/infer_torch.py", "scripts/train_torch.py", "chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("probe_" + script.split("/")[-1][:-3],
                                                   script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -35,4 +35,4 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
     n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 15, proc.stdout
+    assert n_modules >= 23, proc.stdout
