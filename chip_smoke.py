@@ -34,9 +34,28 @@
    steps, then 10 timed steps; checks finite losses, ``latest.ckpt``, a
    resume that continues, and that the run launched every kernel of the
    training path. Prints GAN steps/s with the card's name and power limit.
-6. Prints the card, a JSON line of the five kernels, then
-   ``{"ok": true, "device": ...}`` as the last line. Any failed check exits
-   non-zero without that line.
+6. The dk and stdk families at full width (128x128, T=16, hidden 100,
+   K_s=139, K_t=44, the 79-gauge stis mask, seeded weights):
+   - the fused MLP tail (mlp_tail_fused, J=128 and J=192) and its backward
+     (mlp_tail_bwd, J=192) against their plain versions on the card and a
+     float64 plain version: forward within 1e-5 x max|plain|, dphi and doff
+     within 1e-4 x max|plain|, the weight and bias gradients (sums of
+     J*HW = 3.1e6 terms in another order) within 1e-3 x max|plain|; the
+     forward's plain version is the chain of three ``torch.matmul`` products,
+     so its time is also printed as ``cublas_chain_ms``;
+   - times the host input pipeline alone on the training store (windows/s);
+   - serves the two fake events through ``scripts/infer_torch.py`` with
+     ``dk_gauge.json`` and ``stdk_gauge.json``, checks the stores, the launch
+     count and a 16-frame event against the port's plain CPU path;
+   - trains both configs through ``scripts/train_torch.py`` (batch 12, 15
+     steps cut from 200000 iterations, rec-loss only): launch counts of both
+     kernels equal to the steps (plus the validation forwards), every
+     parameter's last gradient finite and non-zero, and a 6-step resume whose
+     last 4 steps run under ``torch.profiler`` (idle share, time by kernel).
+7. Prints the card, a JSON line of the seven kernels (time, plain version's
+   time, the bound from this run's shapes and what sets it, launches on the
+   kernel's main path), then ``{"ok": true, "device": ...}`` as the last
+   line. Any failed check exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -55,14 +74,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from p2igan_tpu.config import load_config
-from p2igan_tpu.data import fake, zarrlite
+from p2igan_tpu_torch.config import load_config
+from p2igan_tpu_torch.data import fake, zarrlite
+from p2igan_tpu_torch.data.datamodule import P2IDataModule
 from p2igan_tpu_torch.data.stores import store_compressor
 from p2igan_tpu_torch.inference.driver import (SlidingWindowReconstructor,
                                                load_generator, set_precision_policy)
 from p2igan_tpu_torch.losses import reconstruction_loss
-from p2igan_tpu_torch.models import P2IGenerator
+from p2igan_tpu_torch.models import DKGenerator, P2IGenerator, STDKGenerator
 from p2igan_tpu_torch.ops import cuda_lib, idw_factored_kernel, layers
+from p2igan_tpu_torch.ops.dk_mlp_kernel import (mlp_tail_bwd, mlp_tail_bwd_reference,
+                                                mlp_tail_fused, mlp_tail_reference)
 from p2igan_tpu_torch.ops.decode_mask import (decode_normalize_mask,
                                               decode_normalize_mask_reference)
 from p2igan_tpu_torch.ops.doconv import make_d_diag
@@ -72,15 +94,23 @@ from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_table_multi_reference, gauge_topk, gauge_topk_reference)
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
+from p2igan_tpu_torch.ops.wendland import build_phi_space
 
 REPO = Path(__file__).resolve().parent
-CONFIG = REPO / "p2igan_tpu" / "config" / "p2igan_baseline_eval.json"
-TRAIN_CONFIG = REPO / "p2igan_tpu" / "config" / "p2igan_gan_baseline_gauge.json"
+CONFIGS = REPO / "p2igan_tpu_torch" / "config"
+CONFIG = CONFIGS / "p2igan_baseline_eval.json"
+TRAIN_CONFIG = CONFIGS / "p2igan_gan_baseline_gauge.json"
+DK_FAMILY = {"dk": (DKGenerator, CONFIGS / "dk_gauge.json"),
+             "stdk": (STDKGenerator, CONFIGS / "stdk_gauge.json")}
 SEED = 2024
 H = W = 128
 LENGTH, BASE, NUM_RES, WINDOW_BATCH, G, K = 16, 64, 4, 8, 128, 4
 EVENTS, EVENT_FRAMES = 2, 64
 TRAIN_BATCH, TRAIN_EVENTS, WARMUP_STEPS, TIMED_STEPS = 12, 5, 5, 10
+HIDDEN, VISIBLE_K = 100, 79
+# H100 SXM data sheet: device memory rate and the float32 rate outside the
+# tensor cores (the precision policy keeps TF32 off)
+PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
 POOL_SHAPES = [(WINDOW_BATCH, BASE, H, W), (WINDOW_BATCH, 2 * BASE, H // 2, W // 2),
                (WINDOW_BATCH, 4 * BASE, H // 4, W // 4)]
 KERNELS = {
@@ -97,8 +127,14 @@ KERNELS = {
     "decode_normalize_mask": (decode_normalize_mask,
                               "p2igan_tpu_torch/csrc/decode_mask.cu",
                               "p2igan_tpu/ops/pallas/decode_mask.py:53"),
+    "mlp_tail_fused": (mlp_tail_fused, "p2igan_tpu_torch/csrc/dk_mlp_tail.cu",
+                       "p2igan_tpu/ops/pallas/dk_mlp_kernel.py:89"),
+    "mlp_tail_bwd": (mlp_tail_bwd, "p2igan_tpu_torch/csrc/dk_mlp_tail_bwd.cu",
+                     "p2igan_tpu/ops/pallas/dk_mlp_kernel.py:225"),
 }
 SERVING_KERNELS = ("gauge_topk", "combine_table_multi", "maxpool2_duplicate")
+# the path whose launch count each kernel reports in the kernels line
+LAUNCH_PATH = {"mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training"}
 
 
 def fail(msg: str) -> None:
@@ -120,6 +156,17 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the float32 rate, whichever is larger. No single PyTorch call computes
+    any of these kernels' functions, so ``library_ms`` is null for all."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
 
 
 def reset_launches() -> None:
@@ -164,7 +211,11 @@ def check_gauge_topk(masks) -> dict:
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # two coordinates a pixel and three numbers a slot in, k distances and k
+    # slot ids a pixel out; 6 flops a (pixel, slot) distance, a k-round scan
+    hw = H * W
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(4 * (2 * hw + 3 * G + 2 * K * hw), hw * G * (6 + K))}
 
 
 def check_combine(masks, dev) -> dict:
@@ -197,7 +248,18 @@ def check_combine(masks, dev) -> dict:
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **combine_bound(WINDOW_BATCH)}
+
+
+def combine_bound(n: int) -> dict:
+    """Forward and backward of the combine move the same bytes: the (k, HW)
+    distances and slots, the (N, D, G) tables and the (N, D, HW) field. Per
+    (z, pixel): kf*k = 20 candidate distances (8 flops with the sqrt and the
+    weight), k selection rounds over them, and 2 k flops a window."""
+    hw, cand = H * W, 5 * K
+    return bound(4 * (2 * K * hw + n * LENGTH * G + n * LENGTH * hw),
+                 LENGTH * hw * (cand * 8 + K * cand + 2 * K * n))
 
 
 def check_pool_dup(dev) -> dict:
@@ -215,7 +277,10 @@ def check_pool_dup(dev) -> dict:
               f"({gbs:.0f} GB/s), plain {p_ms:.4f} ms")
         ms += k_ms
         plain_ms += p_ms
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    # the input once, the output (half as many elements) once; 3 compares
+    elems = sum(int(np.prod(shape)) for shape in POOL_SHAPES)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            **bound(4 * elems * 1.5, elems * 0.75)}
 
 
 def check_combine_bwd(masks) -> dict:
@@ -242,7 +307,8 @@ def check_combine_bwd(masks) -> dict:
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **combine_bound(TRAIN_BATCH)}
 
 
 def check_decode(dev) -> dict:
@@ -267,7 +333,9 @@ def check_decode(dev) -> dict:
     print(f"decode_normalize_mask{u8.shape} mask {mask.shape}: bitwise equal to "
           f"numpy (kernel and plain); kernel {k_ms:.4f} ms ({gbs:.0f} GB/s), "
           f"plain {p_ms:.4f} ms")
-    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+    # a byte and (once per plane) a mask byte in, two floats out; 2 flops
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+            **bound(u8.size * 9 + mask.size, u8.size * 2)}
 
 
 def write_serving_tree(tmp: Path) -> Path:
@@ -302,31 +370,37 @@ def write_serving_tree(tmp: Path) -> Path:
     return cfg_path
 
 
-def serve(tmp: Path, cfg_path: Path, dev) -> tuple:
-    spec = importlib.util.spec_from_file_location(
-        "infer_torch", REPO / "scripts" / "infer_torch.py")
-    infer_torch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(infer_torch)
+def load_script(name: str):
+    """A CLI of ``scripts/`` as a module, to call its ``main`` as a user would."""
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def serve(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
+          required=SERVING_KERNELS) -> tuple:
+    infer_torch = load_script("infer_torch")
 
     def argv(out):
         return infer_torch.parse_args([
-            "--config", str(cfg_path), "--checkpoint", str(tmp / "P2IGAN_seeded.pt"),
+            "--config", str(cfg_path), "--checkpoint", str(checkpoint),
             "--output", str(tmp / out), "--stride", "16", "--overlap", "12",
             "--window-batch", str(WINDOW_BATCH), "--device", "cuda",
             "--overwrite", "--log-level", "WARNING"])
 
     t0 = time.perf_counter()
-    infer_torch.main(argv("warmup.zarr"))
+    infer_torch.main(argv(f"warmup_{model}.zarr"))
     torch.cuda.synchronize()
-    print(f"serving warm-up run (CUDA context, cuDNN, kernel load): "
+    print(f"{model} serving warm-up run (CUDA context, libraries, kernel load): "
           f"{time.perf_counter() - t0:.3f} s")
     reset_launches()
     t0 = time.perf_counter()
-    out = infer_torch.main(argv("served.zarr"))
+    out = infer_torch.main(argv(f"served_{model}.zarr"))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    print(f"served {EVENTS} events x {EVENT_FRAMES} frames in {seconds:.3f} s: "
+    print(f"{model}: served {EVENTS} events x {EVENT_FRAMES} frames in {seconds:.3f} s: "
           f"{EVENTS / seconds:.3f} events/s end to end (store read, "
           f"reconstruction, zarr write); launches {launches}")
     store = zarrlite.open(out, mode="r")
@@ -338,13 +412,14 @@ def serve(tmp: Path, cfg_path: Path, dev) -> tuple:
             fail(f"{key} has shape {ev.shape}")
         if not np.isfinite(ev).all() or ev.min() < 0.0:
             fail(f"{key} is not finite and >= 0")
-    for name in SERVING_KERNELS:
+    for name in required:
         if launches[name] <= 0:
-            fail(f"the serving run launched no {name} kernel")
+            fail(f"the {model} serving run launched no {name} kernel")
     return launches, EVENTS / seconds
 
 
-def check_against_cpu(tmp: Path, cfg_path: Path, dev) -> None:
+def check_against_cpu(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
+                      dev) -> None:
     """One 16-frame event: the card's path (kernels) vs the port's plain CPU
     path, same weights, at the reconstruction tolerance 1e-4 x 255."""
     cfg = load_config(cfg_path)
@@ -355,14 +430,16 @@ def check_against_cpu(tmp: Path, cfg_path: Path, dev) -> None:
     masked = ev * masks
     outs = {}
     for d in ("cpu", dev):
-        gen = load_generator(cfg, tmp / "P2IGAN_seeded.pt", torch.device(d))
+        gen = load_generator(cfg, checkpoint, torch.device(d))
         recon = SlidingWindowReconstructor(gen, stride=16, overlap=12, window_batch=4)
         outs[str(d)] = recon(masked, masks)
     err = float(np.abs(outs["cpu"] - outs[str(dev)]).max())
-    print(f"16-frame event, card vs plain CPU path: max abs err {err:.4e} "
+    print(f"{model}: 16-frame event, card vs plain CPU path: max abs err {err:.4e} "
           f"(x255 scale), max value {outs['cpu'].max():.3f}")
-    if not err <= 1e-4 * 255.0:
-        fail(f"card reconstruction differs from the CPU path by {err}")
+    if not (np.isfinite(outs[str(dev)]).all() and err <= 1e-4 * 255.0):
+        fail(f"{model}: card reconstruction differs from the CPU path by {err}")
+    if not outs["cpu"].max() > 1.0:
+        fail(f"{model}: the reconstruction is degenerate (max {outs['cpu'].max()})")
 
 
 @contextlib.contextmanager
@@ -434,35 +511,30 @@ def check_gradients(dev) -> None:
           f"the card: max {worst:.2e} x max|grad|; launches {launches}")
 
 
-def write_train_tree(tmp: Path) -> Path:
-    """Fake train store (64-frame events, window 16), 79-gauge mask and the
-    shipped GAN config pointed at them."""
-    fake.write_train_zarr(tmp / "nimrod_train.zarr", n_events=TRAIN_EVENTS,
-                          T=EVENT_FRAMES, H=H, W=W, window=LENGTH, stride=1, seed=SEED)
-    mask = fake.write_gauge_mask(tmp / "masks" / "gauge_mask_128_train.txt", H=H, W=W,
-                                 n_gauges=79, seed=SEED)
-    (tmp / "test_events").mkdir(exist_ok=True)
-    cfg = load_config(TRAIN_CONFIG)
-    cfg["data"]["train"]["data_root"] = str(tmp / "nimrod_train.zarr")
+def write_train_tree(tmp: Path, config: Path = TRAIN_CONFIG) -> dict:
+    """Fake train store (64-frame events, window 16) and 79-gauge mask, written
+    once, and the shipped training config ``config`` pointed at them."""
+    store = tmp / "nimrod_train.zarr"
+    mask = tmp / "masks" / "gauge_mask_128_train.txt"
+    if not store.exists():
+        fake.write_train_zarr(store, n_events=TRAIN_EVENTS, T=EVENT_FRAMES, H=H, W=W,
+                              window=LENGTH, stride=1, seed=SEED)
+        fake.write_gauge_mask(mask, H=H, W=W, n_gauges=79, seed=SEED)
+        (tmp / "test_events").mkdir(exist_ok=True)
+    cfg = load_config(config)
+    cfg["data"]["train"]["data_root"] = str(store)
     cfg["data"]["test"]["data_root"] = str(tmp / "test_events")
     for split in ("train", "test"):
         cfg["data"][split]["mask"]["file"] = str(mask)
     cfg["train"].update(iterations=WARMUP_STEPS + TIMED_STEPS, log_step=WARMUP_STEPS)
     if cfg["train"]["batch_size"] != TRAIN_BATCH or cfg["model"]["base_channels"] != BASE:
-        fail(f"{TRAIN_CONFIG.name} is no longer batch {TRAIN_BATCH}, base {BASE}")
+        fail(f"{config.name} is no longer batch {TRAIN_BATCH}, base {BASE}")
     return cfg
 
 
 def train(tmp: Path, card: str, dev) -> dict:
     """The GAN through scripts/train_torch.py, with device_decode off and on."""
-    spec = importlib.util.spec_from_file_location(
-        "train_torch", REPO / "scripts" / "train_torch.py")
-    train_torch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(train_torch)
-    os.environ["P2IGAN_FORCE_FILE_TRACKER"] = "1"
-    from p2igan_tpu_torch.utils.tracking import get_tracker
-
-    get_tracker().set_tracking_uri(str(tmp / "mlruns"))
+    train_torch = load_script("train_torch")
     base_cfg = write_train_tree(tmp)
     required = ("gauge_topk", "combine_table_multi", "combine_table_multi_bwd",
                 "maxpool2_duplicate")
@@ -514,6 +586,219 @@ def train(tmp: Path, card: str, dev) -> dict:
     return launches
 
 
+# -- the dk and stdk families -------------------------------------------------
+
+def dk_tail_inputs(dev, batch: int):
+    """The tail's inputs as the full-width DK forward forms them: a seeded
+    generator, ``batch`` windows of 16 random frames under the 79-gauge mask.
+    Returns the eight tensors of ``mlp_tail_fused``, J = batch * 16."""
+    rng = np.random.default_rng(SEED + 7)
+    flat = np.zeros(H * W, np.float32)
+    flat[rng.choice(H * W, VISIBLE_K, replace=False)] = 1.0
+    frames = rng.random((batch, LENGTH, H * W), dtype=np.float32)
+    z = torch.from_numpy(frames[:, :, flat > 0]).to(dev)             # (B, T, k)
+    gen = DKGenerator(length=LENGTH, shared_batch_mask=True, device=dev,
+                      generator=torch.Generator().manual_seed(SEED))
+    net = gen._mlp.net
+    for m in (net[0], net[2], net[4], net[6]):   # trained nets have biases
+        m.bias.data = torch.from_numpy(
+            rng.standard_normal(m.bias.shape).astype(np.float32) * 0.1).to(dev)
+    K_s = sum(gen.num_basis_space)
+    phi_s = torch.from_numpy(build_phi_space(H, W, gen.num_basis_space)).to(dev)
+    with torch.no_grad():
+        phi_part = phi_s @ net[0].weight[:, :K_s].t()
+        offs = z.reshape(batch * LENGTH, VISIBLE_K) @ net[0].weight[:, K_s:].t() + net[0].bias
+        return tuple(t.detach().contiguous() for t in (
+            phi_part, offs, net[2].weight.t(), net[2].bias, net[4].weight.t(),
+            net[4].bias, net[6].weight[0], net[6].bias[0]))
+
+
+def check_mlp_tail(dev) -> dict:
+    """Kernel #12 at the serving (J=128) and training (J=192) shapes, within
+    1e-5 x max|plain|; both sides' distance to a float64 plain version. The
+    plain version is the chain of three ``torch.matmul`` products (cuBLAS) over
+    8 offset rows at a time, so its time is also printed as
+    ``cublas_chain_ms``; the port never runs it on a CUDA tensor."""
+    result = {}
+    for batch in (WINDOW_BATCH, TRAIN_BATCH):
+        args = dk_tail_inputs(dev, batch)
+        J, hw, h = args[1].shape[0], args[0].shape[0], args[0].shape[1]
+        out_k, out_p = mlp_tail_fused(*args), mlp_tail_reference(*args)
+        out_64 = mlp_tail_reference(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        scale = float(out_p.abs().max())
+        e = float((out_k - out_p).abs().max())
+        e_k64 = float((out_k.double() - out_64).abs().max())
+        e_p64 = float((out_p.double() - out_64).abs().max())
+        if not (scale > 0 and e <= 1e-5 * scale):
+            fail(f"mlp_tail_fused J={J}: max abs err {e} > 1e-5 x {scale}")
+        k_ms = cuda_ms(lambda: mlp_tail_fused(*args))
+        p_ms = cuda_ms(lambda: mlp_tail_reference(*args), reps=5)
+        flops = J * hw * (4 * h * h + 4 * h)
+        nbytes = 4 * (hw * h + J * h + 2 * h * h + 3 * h + 1 + J * hw)
+        b = bound(nbytes, flops)
+        print(f"mlp_tail_fused J={J} HW={hw} h={h}: max abs err {e:.3e} "
+              f"({e / scale:.2e} x max|plain| {scale:.3f}); to float64: kernel "
+              f"{e_k64:.3e}, plain {e_p64:.3e}; kernel {k_ms:.4f} ms "
+              f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
+              f"(cublas_chain_ms {p_ms:.4f}), bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
+        # the kernels line reports the training shape (the larger J)
+        result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b}
+    return result
+
+
+def check_mlp_tail_bwd(dev) -> dict:
+    """Kernel #13 at the training shape (J=192): dphi and doff within 1e-4 x
+    max|plain|; the weight and bias gradients sum J*HW = 3.1e6 float32 terms
+    in another order than autograd's matmuls, so 1e-3 x max|plain|. Both sides'
+    distance to float64 autograd of the plain version is printed."""
+    phi, off, fc2, b2, fc3, b3, fc4, _ = dk_tail_inputs(dev, TRAIN_BATCH)
+    J, hw, h = off.shape[0], phi.shape[0], phi.shape[1]
+    g = torch.from_numpy(np.random.default_rng(SEED + 8).standard_normal(
+        (J, hw)).astype(np.float32)).to(dev)
+    got = mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4)
+    want = mlp_tail_bwd_reference(phi, off, g, fc2, b2, fc3, b3, fc4)
+    want_64 = mlp_tail_bwd_reference(*(a.double() for a in (phi, off, g, fc2, b2,
+                                                            fc3, b3, fc4)))
+    torch.cuda.synchronize()
+    names = ("dphi", "doff", "dfc2", "db2", "dfc3", "db3", "dfc4")
+    err, worst = 0.0, {}
+    for name, a, b_, c in zip(names, got, want, want_64):
+        scale = float(b_.abs().max())
+        e = float((a - b_).abs().max())
+        tol = 1e-4 if name in ("dphi", "doff") else 1e-3
+        worst[name] = (e / scale, float((a.double() - c).abs().max()) / scale,
+                       float((b_.double() - c).abs().max()) / scale)
+        if not (a.shape == b_.shape and scale > 0 and e <= tol * scale):
+            fail(f"mlp_tail_bwd {name}: max abs err {e} > {tol} x {scale}")
+        err = max(err, e)
+    again = mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4)
+    if not all(bitwise_equal(a, b_) for a, b_ in zip(got, again)):
+        fail("mlp_tail_bwd does not repeat bit for bit")
+    k_ms = cuda_ms(lambda: mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4), reps=10)
+    p_ms = cuda_ms(lambda: mlp_tail_bwd_reference(phi, off, g, fc2, b2, fc3, b3, fc4),
+                   reps=3, warmup=1)
+    # six (rows, h, h) products a (j, pixel): two recomputed, two transposed,
+    # two weight gradients; phi, g and the weights in, the gradients out
+    flops = J * hw * (12 * h * h + 10 * h)
+    nbytes = 4 * (2 * hw * h + 2 * J * h + J * hw + 4 * h * h + 6 * h)
+    b = bound(nbytes, flops)
+    print(f"mlp_tail_bwd J={J} HW={hw} h={h}: kernel vs plain / kernel vs float64 / "
+          f"plain vs float64, x max|plain|: "
+          + ", ".join(f"{n} {v[0]:.1e}/{v[1]:.1e}/{v[2]:.1e}" for n, v in worst.items())
+          + f"; repeats bitwise; kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
+          f"TFLOP/s), plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b}
+
+
+def write_dk_serving(tmp: Path, model: str) -> tuple:
+    """A seeded full-width dk/stdk generator as a reference-layout .pt and the
+    shipped gauge config pointed at the serving tree."""
+    klass, config = DK_FAMILY[model]
+    gen = klass(length=LENGTH, shared_batch_mask=True,
+                generator=torch.Generator().manual_seed(SEED))
+    if list(gen.state_dict())[:2] != ["_mlp.net.0.weight", "_mlp.net.0.bias"]:
+        fail(f"{model} state_dict keys {list(gen.state_dict())}")
+    # a random net's output may be negative everywhere, and the reconstruction
+    # clips at 0: shift the output bias so that the first window's median is
+    # 0.5, which keeps the card-vs-CPU comparison from being 0 against 0
+    ev = zarrlite.open(tmp / "test_events.zarr", mode="r")["event_01"][:LENGTH]
+    ev = torch.from_numpy(ev[None, ..., None].astype(np.float32) / 255.0)
+    mask = np.loadtxt(tmp / "masks" / "gauge_mask_128.txt").astype(np.float32)
+    masks = torch.from_numpy(mask)[None, None, :, :, None].expand_as(ev)
+    with torch.no_grad():
+        gen._mlp.net[6].bias += 0.5 - gen(ev * masks, masks).median()
+    checkpoint = tmp / f"{model.upper()}_seeded.pt"
+    torch.save(gen.state_dict(), checkpoint)
+    cfg = load_config(config)
+    cfg["save_dir"] = str(tmp / f"weights_{model}")
+    cfg["data"]["train"]["data_root"] = str(tmp / "nimrod_train.zarr")  # unread
+    for split in ("train", "test"):
+        cfg["data"][split]["mask"]["file"] = str(tmp / "masks" / "gauge_mask_128.txt")
+    cfg["data"]["test"]["data_root"] = str(tmp / "test_events.zarr")
+    cfg_path = tmp / f"eval_{model}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    return cfg_path, checkpoint
+
+
+def host_loader_rate(tmp: Path) -> float:
+    """Windows/s of the host input pipeline alone (zarr window read, crop,
+    /255, mask, collate; float mode, the config's 4 loader threads) on the
+    training store: what the steps below can be fed with."""
+    loader = P2IDataModule(write_train_tree(tmp, DK_FAMILY["dk"][1])).train_dataloader()
+    t0 = time.perf_counter()
+    windows = sum(batch[0].shape[0] for batch in loader)
+    rate = windows / (time.perf_counter() - t0)
+    print(f"host input pipeline alone: {windows} windows of {LENGTH}x{H}x{W} in "
+          f"batches of {TRAIN_BATCH}: {rate:.1f} windows/s "
+          f"({rate / TRAIN_BATCH:.2f} batches/s)")
+    return rate
+
+
+def train_rec(tmp: Path, card: str, dev, model: str) -> tuple:
+    """dk or stdk through scripts/train_torch.py on the shipped gauge config:
+    reconstruction loss only (use_gan 0), AdamNoMu, 5 warm-up + 10 timed
+    steps at batch 12. Then a resume for 6 more steps, the last 4 under the
+    trainer's torch.profiler window (kept out of the timed run, which it
+    would slow): device idle share and time by kernel."""
+    train_torch = load_script("train_torch")
+    cfg = write_train_tree(tmp, DK_FAMILY[model][1])
+    if cfg["loss"]["use_gan"] or cfg["model"]["name"] != model:
+        fail(f"{DK_FAMILY[model][1].name} is no longer a rec-loss {model} config")
+    cfg["save_dir"] = str(tmp / f"weights_train_{model}")
+    cfg_path = tmp / f"train_{model}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    argv = ["--config", str(cfg_path), "--device", dev.type, "--log-level", "WARNING"]
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_torch.main(train_torch.parse_args(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    val_batches = len(trainer.val_loader)
+    if trainer.global_step != steps or not np.isfinite(trainer.last_rec_loss):
+        fail(f"{model} trained {trainer.global_step} steps, rec {trainer.last_rec_loss}")
+    if (launches["mlp_tail_fused"], launches["mlp_tail_bwd"]) != (steps + val_batches, steps):
+        fail(f"{model} training launched {launches}, expected {steps} + "
+             f"{val_batches} validation forwards and {steps} backwards")
+    for name, prm in trainer.generator.named_parameters():
+        if prm.grad is None or not bool(torch.isfinite(prm.grad).all()) \
+                or float(prm.grad.abs().max()) == 0.0:
+            fail(f"{model} parameter {name} has no finite non-zero gradient")
+    (s0, t_0), (s1, t_1) = trainer.log_times[0], trainer.log_times[-1]
+    if (s0, s1) != (WARMUP_STEPS, steps):
+        fail(f"log points {trainer.log_times}")
+    sps = (s1 - s0) / (t_1 - t_0)
+    print(f"{model} training: {s1} rec-loss steps at batch {TRAIN_BATCH}, T={LENGTH}, "
+          f"{H}x{W} in {seconds:.2f} s (run incl. set-up and validation); "
+          f"{sps:.3f} steps/s over steps {s0 + 1}-{s1} on {card}; mean rec "
+          f"{trainer.last_rec_loss:.5f}; all {len(list(trainer.generator.parameters()))} "
+          f"parameters' gradients finite and non-zero; launches {launches}")
+    latest = Path(cfg["save_dir"]) / "latest.ckpt"
+    if not latest.exists():
+        fail(f"{model} training wrote no latest.ckpt")
+    prof = tmp / f"profile_{model}"
+    cfg["train"].update(iterations=s1 + 6, max_epochs=2, profile_dir=str(prof),
+                        profile_start_step=s1 + 2, profile_steps=4)
+    cfg_path.write_text(json.dumps(cfg))
+    resumed = train_torch.main(train_torch.parse_args(argv + ["--resume", str(latest)]))
+    if resumed.global_step != s1 + 6 or not np.isfinite(resumed.last_rec_loss):
+        fail(f"{model} resume ended at step {resumed.global_step}")
+    summary = json.loads((prof / "summary.json").read_text())
+    rows = [" ".join(line.split()) for line in
+            (prof / "key_averages.txt").read_text().splitlines()[3:9]]
+    print(f"{model}: resume from latest.ckpt continued to step {resumed.global_step}; "
+          f"profile of its last {summary['steps']} steps: wall "
+          f"{summary['wall_ms']:.2f} ms, device busy {summary['device_busy_ms']:.2f} ms, "
+          f"idle share {summary['device_idle_share']:.3f}; top rows by device time "
+          f"(name, self CPU %, self CPU, CPU total %, CPU total, CPU avg, self CUDA, "
+          f"self CUDA %, CUDA total, CUDA avg, calls):\n  " + "\n  ".join(rows))
+    return launches, sps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -541,19 +826,38 @@ def main() -> int:
                "combine_table_multi": check_combine(masks, dev),
                "maxpool2_duplicate": check_pool_dup(dev),
                "combine_table_multi_bwd": check_combine_bwd(masks),
-               "decode_normalize_mask": check_decode(dev)}
+               "decode_normalize_mask": check_decode(dev),
+               "mlp_tail_fused": check_mlp_tail(dev),
+               "mlp_tail_bwd": check_mlp_tail_bwd(dev)}
 
+    paths = {}  # launches of every kernel, per path driven
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
-        cfg_path = write_serving_tree(tmp)
-        _, events_per_s = serve(tmp, cfg_path, dev)
-        check_against_cpu(tmp, cfg_path, dev)
-        print(f"serving: {events_per_s:.4f} events/s on {card}")
-        check_gradients(dev)
-        launches = train(tmp, card, dev)
+        os.environ["P2IGAN_FORCE_FILE_TRACKER"] = "1"
+        from p2igan_tpu_torch.utils.tracking import get_tracker
 
+        get_tracker().set_tracking_uri(str(tmp / "mlruns"))
+        cfg_path = write_serving_tree(tmp)
+        checkpoint = tmp / "P2IGAN_seeded.pt"
+        paths["p2igan serving"], events_per_s = serve(tmp, cfg_path, checkpoint, "p2igan")
+        check_against_cpu(tmp, cfg_path, checkpoint, "p2igan", dev)
+        print(f"p2igan serving: {events_per_s:.4f} events/s on {card}")
+        check_gradients(dev)
+        paths["p2igan training"] = train(tmp, card, dev)
+        host_loader_rate(tmp)
+        for model in DK_FAMILY:
+            cfg_path, checkpoint = write_dk_serving(tmp, model)
+            paths[f"{model} serving"], events_per_s = serve(
+                tmp, cfg_path, checkpoint, model, required=("mlp_tail_fused",))
+            check_against_cpu(tmp, cfg_path, checkpoint, model, dev)
+            print(f"{model} serving: {events_per_s:.4f} events/s on {card}")
+            paths[f"{model} training"], sps = train_rec(tmp, card, dev, model)
+            print(f"{model} training: {sps:.4f} steps/s on {card}")
+
+    print(json.dumps({"launches_by_path": paths}))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], **results[name]}
+                "launches": paths[LAUNCH_PATH.get(name, "p2igan training")][name],
+                **results[name]}
                for name, (_, src, rep) in KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

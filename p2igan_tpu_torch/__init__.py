@@ -1,17 +1,22 @@
 """p2igan_tpu_torch -- the PyTorch / CUDA port of p2igan_tpu.
 
 The JAX package ``p2igan_tpu`` stays the reference; this package re-implements
-its stis serving path in PyTorch for an NVIDIA H100, with the Pallas kernels
-of that path rewritten as CUDA kernels (``csrc/``). It never imports jax, flax
-or optax; from ``p2igan_tpu`` it reuses only the jax-free ``config`` and
-``data.zarrlite`` (and ``data.fake`` in tools and tests).
+it in PyTorch for an NVIDIA H100, slice by slice, with the Pallas kernels of
+each ported path rewritten as CUDA kernels (``csrc/``): so far the stis
+serving path and hinge-GAN training of p2igan, and the dk and stdk families
+in serving and reconstruction-loss training. It imports neither jax, flax or
+optax nor anything of ``p2igan_tpu``: the host modules it needs from there
+(``config``, ``data.zarrlite``, ``data.fake``, ``utils.tracking``, the config
+JSONs) are its own copies. Only the tests import both packages.
 
 Layers:
-  data       p2igan_tpu_torch.data       (masks, event readers, test loader)
-  ops        p2igan_tpu_torch.ops        (DO-conv, factored IDW, pool-dup, kernels)
-  models     p2igan_tpu_torch.models     (P2IGenerator, weight conversion)
+  config     p2igan_tpu_torch.config     (loader; config/*.json the shipped configs)
+  data       p2igan_tpu_torch.data       (zarrlite, masks, readers, loaders, fake data)
+  ops        p2igan_tpu_torch.ops        (DO-conv, factored IDW, pool-dup, MLP tail, kernels)
+  models     p2igan_tpu_torch.models     (p2igan, dk, stdk, weight conversion)
+  training   p2igan_tpu_torch.training   (steps, trainer, checkpoints)
   serving    p2igan_tpu_torch.inference  (sliding-window reconstruction)
-  cli        scripts/infer_torch.py
+  cli        scripts/infer_torch.py, scripts/train_torch.py
 """
 
 __version__ = "0.1.0"

@@ -21,8 +21,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from p2igan_tpu.config import build_dataset_args, drop_sample_length, extract_shared_params
-
+from ..config import build_dataset_args, drop_sample_length, extract_shared_params
 from .stores import EventDataset, Item, ZarrWindowDataset
 
 

@@ -26,8 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from p2igan_tpu.data import zarrlite
-
+from . import zarrlite
 from .masks import create_mask_np
 
 Item = Tuple[np.ndarray, np.ndarray, np.ndarray]

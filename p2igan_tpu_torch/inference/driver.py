@@ -28,8 +28,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from p2igan_tpu.data import zarrlite
-
+from ..data import zarrlite
 from ..data.datamodule import P2IDataModule, pad_repeat_last
 from ..data.stores import store_compressor
 from ..models import build_generator_for_inference
@@ -81,6 +80,8 @@ class SlidingWindowReconstructor:
     def _check_gauge_budget(self, masks: np.ndarray) -> None:
         """Fail loudly when any event/frame mask holds more gauges than the
         factored IDW's static slot budget (the selection would drop some)."""
+        if not self._supports_prepared_idw():
+            return
         gen = self.generator
         budget = InputBlock.gauge_budget(gen.idw_max_points, gen.length)
         mask_xy = np.asarray(masks)[..., 0]
@@ -92,6 +93,14 @@ class SlidingWindowReconstructor:
                 f"budget allows {budget} (idw_max_points={gen.idw_max_points}, "
                 f"length={gen.length}); raise idw_max_points "
                 f"(P2IGenerator.from_config sizes it from the config masks)")
+
+    def _supports_prepared_idw(self) -> bool:
+        """True when the generator's IDW gauge selection is a constant of the
+        event mask (the factored shared-mask path of p2igan) and is hoisted
+        out of the window loop; dk and stdk have no IDW."""
+        gen = self.generator
+        return bool(getattr(gen, "idw_factored", False)
+                    and getattr(gen, "idw_shared_batch_mask", False))
 
     @staticmethod
     def _masks_shared(masks: np.ndarray) -> bool:
@@ -137,11 +146,12 @@ class SlidingWindowReconstructor:
         flat_k = masks.reshape(E * T, H, W, C)
         gen = self.generator
         # one gauge selection for the whole stream: every window shares the mask
-        prep = gen.prepare_idw(masks[0, 0, :, :, 0])
+        kw = ({"idw_prepared": gen.prepare_idw(masks[0, 0, :, :, 0])}
+              if self._supports_prepared_idw() else {})
         accum = torch.zeros((E * (T + 1), H, W, C), dtype=torch.float32, device=dev)
         for lo in range(0, win_idx.shape[0], wb):
             idx = win_idx[lo:lo + wb]
-            preds = gen(flat_m[idx], flat_k[idx], idw_prepared=prep)
+            preds = gen(flat_m[idx], flat_k[idx], **kw)
             accum.index_add_(0, tgt[lo:lo + wb].reshape(-1),
                              preds.to(torch.float32).reshape(-1, H, W, C))
         return _overlap_average(accum, torch.from_numpy(count).to(dev), E, T,
@@ -152,10 +162,11 @@ class SlidingWindowReconstructor:
 
     def batch(self, masked: np.ndarray, masks: np.ndarray) -> np.ndarray:
         """Reconstruct equal-length events (E, T, H, W, C) as one flattened
-        window stream. The stream hoists ONE gauge selection, so events with
-        different masks are reconstructed one by one instead."""
+        window stream. With the hoisted IDW the stream shares ONE gauge
+        selection, so events with different masks are then reconstructed one
+        by one instead."""
         self._check_gauge_budget(masks)
-        if not self._masks_shared(masks):
+        if self._supports_prepared_idw() and not self._masks_shared(masks):
             return np.stack([self(masked[e], masks[e])
                              for e in range(masked.shape[0])])
         out = self._reconstruct(self._to_device(masked), self._to_device(masks))
@@ -172,7 +183,8 @@ class SlidingWindowReconstructor:
 def load_generator(cfg: Dict[str, Any], checkpoint_path: str | Path,
                    device: torch.device, fold_weights: bool = True):
     """The config's generator with the checkpoint's weights, folded for
-    serving (DO-conv kernels composed once) unless ``fold_weights`` is off."""
+    serving (p2igan: DO-conv kernels composed once; dk/stdk: the fused tail
+    switched on, weights unchanged) unless ``fold_weights`` is off."""
     gen = build_generator_for_inference(cfg, device=device)
     gen.load_state_dict(load_generator_state(checkpoint_path))
     gen.eval()

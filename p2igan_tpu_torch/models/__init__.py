@@ -1,35 +1,61 @@
-"""Model registry of the port (the p2igan family only, so far)."""
+"""Model registry of the port, keyed like the JAX package's
+(``p2igan_tpu/models/__init__.py``): ``model.name`` in {p2igan, dk, stdk};
+``simple`` is not ported yet."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
+from .dk import DKGenerator, DKMLP  # noqa: F401
 from .p2igan import P2IDiscriminator, P2IGenerator
+from .stdk import STDKGenerator
+
+_DK_FAMILY = {"dk": DKGenerator, "stdk": STDKGenerator}
 
 
-def _require_p2igan(cfg: Dict[str, Any]) -> None:
+def _model_name(cfg: Dict[str, Any]) -> str:
     name = str(cfg.get("model", {}).get("name", "simple")).lower()
-    if name != "p2igan":
+    if name not in ("p2igan", *_DK_FAMILY):
         raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet; only p2igan is")
+            f"model {name!r} is not ported to PyTorch yet (ROADMAP queue 1 "
+            f"item 8); p2igan, dk and stdk are")
+    return name
 
 
 def build_generator(cfg: Dict[str, Any], device=None,
-                    generator: Optional[torch.Generator] = None) -> P2IGenerator:
+                    generator: Optional[torch.Generator] = None) -> nn.Module:
     """The training generator, keyed by ``model.name`` (reference
-    models/__init__.py): the generator with factored (unfolded) DO-convs."""
-    _require_p2igan(cfg)
+    models/__init__.py): p2igan with factored (unfolded) DO-convs; dk/stdk
+    take ``sample_length`` from ``data_loader`` or ``data.train``."""
+    name = _model_name(cfg)
+    if name in _DK_FAMILY:
+        return _DK_FAMILY[name].from_config(cfg, device=device, generator=generator)
     return P2IGenerator.from_config(cfg, device=device, generator=generator)
 
 
 def build_generator_for_inference(cfg: Dict[str, Any], device=None,
                                   generator: Optional[torch.Generator] = None
-                                  ) -> P2IGenerator:
-    """Inference-time builder keyed by ``model.name`` like the JAX package's
-    (reference scripts/infer.py:83-106); only p2igan is ported."""
-    return build_generator(cfg, device=device, generator=generator)
+                                  ) -> nn.Module:
+    """The serving generator (reference scripts/infer.py:83-106): dk/stdk take
+    the test ``sample_length``, falling back to train, then 16."""
+    name = _model_name(cfg)
+    if name not in _DK_FAMILY:
+        return build_generator(cfg, device=device, generator=generator)
+    data_cfg = cfg.get("data", {})
+    test_cfg = data_cfg.get("test", {})
+    sample_length = (test_cfg.get("sample_length")
+                     or data_cfg.get("train", {}).get("sample_length") or 16)
+    # shared_batch_mask follows the mask the SERVING data uses: the test
+    # split's (train-inherited unless overridden; explicit null deletes)
+    mask_cfg = (test_cfg["mask"] if "mask" in test_cfg
+                else data_cfg.get("train", {}).get("mask"))
+    return _DK_FAMILY[name].from_config(
+        cfg, length=sample_length,
+        shared_batch_mask=(mask_cfg or {}).get("type") == "stis",
+        device=device, generator=generator)
 
 
 def build_discriminator(cfg: Dict[str, Any], device=None,
@@ -37,8 +63,12 @@ def build_discriminator(cfg: Dict[str, Any], device=None,
                         ) -> P2IDiscriminator:
     """The P2I discriminator; its 2-D branch takes in_channels * sample_length
     channels. ``model.disc_branch3d_dtype`` (a bf16 3-D branch in the JAX
-    package) is not ported: anything but float32 raises."""
-    _require_p2igan(cfg)
+    package) is not ported: anything but float32 raises. dk and stdk train
+    with the reconstruction loss only and have no discriminator here."""
+    if _model_name(cfg) != "p2igan":
+        raise NotImplementedError(
+            "only p2igan has a discriminator in the port (the JAX package "
+            "pairs dk/stdk with the simple model's, ROADMAP queue 1 item 8)")
     d3d = str(cfg.get("model", {}).get("disc_branch3d_dtype", "float32"))
     if d3d != "float32":
         raise NotImplementedError(
@@ -47,5 +77,5 @@ def build_discriminator(cfg: Dict[str, Any], device=None,
     return P2IDiscriminator.from_config(cfg, device=device, generator=generator)
 
 
-__all__ = ["P2IGenerator", "P2IDiscriminator", "build_generator",
-           "build_generator_for_inference", "build_discriminator"]
+__all__ = ["P2IGenerator", "P2IDiscriminator", "DKGenerator", "STDKGenerator",
+           "build_generator", "build_generator_for_inference", "build_discriminator"]

@@ -1,9 +1,10 @@
-"""Weights across packages: JAX/flax P2I variables -> the port's
+"""Weights across packages: JAX/flax variables -> the port's
 (reference-layout) torch state_dicts, and JAX optimizer state -> the port's.
 
-``state_dict_from_jax`` and ``disc_state_dict_from_jax`` are the inverses of
-``p2igan_tpu/models/torch_import.py::import_p2igan_generator`` and
-``import_p2igan_discriminator``. Accounting is strict both ways: every flax
+``state_dict_from_jax``, ``disc_state_dict_from_jax`` and
+``dk_state_dict_from_jax`` are the inverses of
+``p2igan_tpu/models/torch_import.py::import_p2igan_generator``,
+``import_p2igan_discriminator`` and ``import_dk_generator``. Accounting is strict both ways: every flax
 leaf must be used and every state_dict key of the structure must be filled,
 else it raises. ``D_diag`` is a constant of the DO-conv and is not emitted.
 """
@@ -113,14 +114,62 @@ def disc_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tenso
     return ex.finish()
 
 
+_DK_LINEARS = ((0, "fc1"), (2, "fc2"), (4, "fc3"), (6, "fc4"))
+
+
+def dk_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax DKGenerator / STDKGenerator variables ({"params": {"mlp": {fc1,
+    b1, ...}}}, numpy or jax arrays) -> the reference-layout state_dict
+    ``_mlp.net.{0,2,4,6}.{weight,bias}``: weights transposed to torch's
+    (out, in), the (1, h) biases flattened."""
+    ex = _Exporter(variables["params"])
+    for tidx, fname in _DK_LINEARS:
+        ex.put(f"_mlp.net.{tidx}.weight", ex.take(("mlp", fname)).T)
+        ex.put(f"_mlp.net.{tidx}.bias", ex.take(("mlp", f"b{fname[-1]}"))[0])
+    return ex.finish()
+
+
+def remap_dk_visible_columns(state: Dict[str, torch.Tensor], order: np.ndarray,
+                             n_space: int, n_time: int = 0, t_blocks: int = 1
+                             ) -> Dict[str, torch.Tensor]:
+    """Permute the first layer's columns of the visible-value block(s) from a
+    torch top-k ``order`` (the tie order of the device a checkpoint trained
+    on) to the ascending-index order of ``select_visible``. Counterpart of
+    ``p2igan_tpu/models/torch_import.py::remap_dk_visible_columns`` on the
+    port's state_dict, where features are columns of ``_mlp.net.0.weight``.
+
+    Feature layout (reference dk.py:191-194 / stdk.py:180-185):
+    ``[phi_s (n_space) | phi_t (n_time) | z (t_blocks * k)]``."""
+    k = len(order)
+    pos = {int(g): j for j, g in enumerate(order)}
+    perm = torch.tensor([pos[int(g)] for g in np.sort(order)], dtype=torch.long)
+    out = dict(state)
+    fc1 = state["_mlp.net.0.weight"].clone()       # (hidden, feature_dim)
+    base = n_space + n_time
+    if base + t_blocks * k != fc1.shape[1]:
+        raise ValueError(
+            f"visible-column remap layout mismatch: n_space+n_time={base} "
+            f"plus {t_blocks} block(s) of {k} gauges != fc1 columns "
+            f"{fc1.shape[1]}; a wrong offset would silently permute the "
+            f"wrong columns")
+    for b in range(t_blocks):
+        off = base + b * k
+        fc1[:, off:off + k] = fc1[:, off:off + k][:, perm]
+    out["_mlp.net.0.weight"] = fc1
+    return out
+
+
 def params_from_jax(module: nn.Module, params: Dict[str, Any]
                        ) -> Dict[str, torch.Tensor]:
     """A flax params-shaped tree (the parameters, or an optimizer moment of
     them) -> {port parameter name: tensor}."""
+    from .dk import DKGenerator
     from .p2igan import P2IDiscriminator, P2IGenerator
 
     if isinstance(module, P2IGenerator):
         return state_dict_from_jax({"params": params})
+    if isinstance(module, DKGenerator):  # STDKGenerator too
+        return dk_state_dict_from_jax({"params": params})
     if isinstance(module, P2IDiscriminator):
         ex = _Exporter(params)
         _disc_params(ex)

@@ -88,10 +88,12 @@ def make_optimizer(opt_cfg: Dict[str, Any], params: Iterable) -> torch.optim.Opt
 
 def _gen_apply(gen: nn.Module, idw_prepared=None) -> Callable:
     """G(masked, masks) with the masks broadcast to the masked frames (the raw
-    pipeline ships frame-constant (B, 1, H, W, C) masks) and, for the stis
-    path, the run's hoisted gauge selection."""
+    pipeline ships frame-constant (B, 1, H, W, C) masks) and, for p2igan's
+    stis path, the run's hoisted gauge selection (dk and stdk take none)."""
+    kw = {} if idw_prepared is None else {"idw_prepared": idw_prepared}
+
     def apply(masked, masks):
-        return gen(masked, masks.expand_as(masked), idw_prepared=idw_prepared)
+        return gen(masked, masks.expand_as(masked), **kw)
     return apply
 
 

@@ -35,8 +35,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from p2igan_tpu.config import flatten_dict
-
+from ..config import flatten_dict
 from ..data.datamodule import P2IDataModule
 from ..inference.driver import resolve_device, set_precision_policy
 from ..models import build_discriminator, build_generator
@@ -110,9 +109,11 @@ class Trainer:
             fused_disc_forward=bool(train_cfg.get("fused_disc_forward", True)))
         self._build_steps()
         mask_cfg = cfg.get("data", {}).get("train", {}).get("mask", {}) or {}
-        self._idw_hoist_pending = (mask_cfg.get("type") == "stis"
-                                   and self.generator.idw_factored
-                                   and self.generator.idw_shared_batch_mask)
+        self._idw_hoist_pending = bool(
+            mask_cfg.get("type") == "stis"
+            and getattr(self.generator, "idw_factored", False)
+            and getattr(self.generator, "idw_shared_batch_mask", False)
+            and hasattr(self.generator, "prepare_idw"))
         self.tracker = get_tracker()
         self.profile_dir = train_cfg.get("profile_dir")
         self.profile_start = int(train_cfg.get("profile_start_step", 2))

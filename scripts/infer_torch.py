@@ -1,6 +1,6 @@
 """Inference CLI of the PyTorch port (the flags of ``scripts/infer.py``).
 
-    python scripts/infer_torch.py --config p2igan_tpu/config/p2igan_baseline_eval.json \
+    python scripts/infer_torch.py --config p2igan_tpu_torch/config/p2igan_baseline_eval.json \
         --checkpoint weights/test/P2IGANv0.1.0.pt --output out.zarr --device cuda
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is available; pass
@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from p2igan_tpu.config import load_config
+from p2igan_tpu_torch.config import load_config
 from p2igan_tpu_torch.inference.driver import run_inference
 
 
@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Inference for P2I-GAN benchmark models (PyTorch / CUDA)")
     parser.add_argument("--config", type=Path,
-                        default=Path("p2igan_tpu/config/p2igan_baseline.json"))
+                        default=Path("p2igan_tpu_torch/config/p2igan_baseline.json"))
     parser.add_argument("--checkpoint", type=Path, default=None,
                         help="Path to a torch .pt generator checkpoint.")
     parser.add_argument("--model-dir", type=Path, default=None)

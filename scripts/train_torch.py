@@ -1,6 +1,6 @@
 """Training CLI of the PyTorch port (the flags of ``scripts/train.py``).
 
-    python scripts/train_torch.py --config p2igan_tpu/config/p2igan_gan_baseline_gauge.json
+    python scripts/train_torch.py --config p2igan_tpu_torch/config/p2igan_gan_baseline_gauge.json
     python scripts/train_torch.py --config <cfg.json> --resume weights/.../latest.ckpt
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is available; pass
@@ -27,7 +27,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from p2igan_tpu.config import load_config
+from p2igan_tpu_torch.config import load_config
 from p2igan_tpu_torch.training.trainer import Trainer
 from p2igan_tpu_torch.utils.tracking import get_tracker, setup_logging
 
@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Train P2I-GAN benchmark model (PyTorch / CUDA)")
     parser.add_argument("--config", type=Path,
-                        default=Path("p2igan_tpu/config/p2igan_baseline.json"),
+                        default=Path("p2igan_tpu_torch/config/p2igan_baseline.json"),
                         help="Path to JSON/YAML config file.")
     parser.add_argument("--experiment-name", type=str, default=None)
     parser.add_argument("--run-name", type=str, default=None)

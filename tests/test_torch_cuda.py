@@ -177,3 +177,133 @@ def test_gradients_through_both_functions(dev):
     y.backward(gy)
     maxpool2_duplicate_reference(xb).backward(gy)
     assert torch.equal(xa.grad, xb.grad)
+
+
+# -- the fused DK/STDK MLP tail (csrc/dk_mlp_tail.cu, dk_mlp_tail_bwd.cu) ------
+
+def _tail_inputs(HW, J, h, dev, seed=0, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev).to(dtype)
+
+    s = np.sqrt(2.0 / h)
+    return (arr(HW, h), arr(J, h), arr(h, h, scale=s), arr(h, scale=0.1),
+            arr(h, h, scale=s), arr(h, scale=0.1), arr(h, scale=s), arr(1)[0])
+
+
+# ragged pixel tiles (HW not a multiple of 128 or 64), a hidden width below
+# the thread grid's 104 columns, and the models' own h = 100
+TAIL_SHAPES = [(256, 6, 100), (1000, 5, 100), (77, 3, 40), (130, 2, 102), (64, 1, 8)]
+
+
+@pytest.mark.parametrize("HW,J,h", TAIL_SHAPES)
+def test_mlp_tail_kernel_matches_plain(dev, HW, J, h):
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    args = _tail_inputs(HW, J, h, dev)
+    before = M.mlp_tail_fused.launches
+    out = M.mlp_tail_fused(*args)
+    torch.cuda.synchronize()
+    assert M.mlp_tail_fused.launches == before + 1
+    want = M.mlp_tail_reference(*(a.double() for a in args))
+    assert out.shape == (J, HW) and out.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((out.double() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("HW,J,h", TAIL_SHAPES)
+def test_mlp_tail_bwd_kernel_matches_plain(dev, HW, J, h):
+    """The eight gradients against float64 autograd of the plain version:
+    1e-4 x max|plain| (the sums over J * HW terms run in another order)."""
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    args = [a.requires_grad_(True) for a in _tail_inputs(HW, J, h, dev)]
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((J, HW))
+                         .astype(np.float32)).to(dev)
+    before = M.mlp_tail_bwd.launches
+    out = M.mlp_tail_fused(*args)
+    got = torch.autograd.grad(out, args, g)
+    torch.cuda.synchronize()
+    assert M.mlp_tail_bwd.launches == before + 1
+    args64 = [a.detach().double().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(M.mlp_tail_reference(*args64), args64, g.double())
+    names = ("dphi", "doff", "dfc2", "db2", "dfc3", "db3", "dfc4", "db4")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a.double() - b).abs().max()) <= 1e-4 * scale, name
+
+
+def test_mlp_tail_bwd_repeats_bitwise(dev):
+    """Partials are summed in block order, so two runs agree bit for bit."""
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    phi, off, fc2, b2, fc3, b3, fc4, _ = _tail_inputs(700, 9, 100, dev)
+    g = torch.ones((9, 700), device=dev)
+    first = M.mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4)
+    second = M.mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_mlp_tail_rejects_what_the_kernel_does_not_take(dev):
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    args = list(_tail_inputs(64, 2, 100, dev))
+    with pytest.raises(ValueError):
+        M.mlp_tail_fused(*_tail_inputs(64, 2, 120, dev))       # h > 104
+    wide = _tail_inputs(64, 2, 104, dev)                       # fits the forward only
+    assert M.mlp_tail_fused(*wide).shape == (2, 64)
+    with pytest.raises(ValueError):
+        M.mlp_tail_bwd(*wide[:2], torch.ones((2, 64), device=dev), *wide[2:7])
+    with pytest.raises(ValueError):
+        M.mlp_tail_fused(args[0], args[1][:, :50], *args[2:])  # shapes
+    cpu = [a.cpu() for a in args]
+    with pytest.raises(ValueError):
+        M.mlp_tail_fused(args[0], cpu[1], *args[2:])           # mixed devices
+
+
+@pytest.mark.parametrize("family", ["dk", "stdk"])
+def test_dk_generators_through_the_kernels_match_the_plain_tail(dev, family):
+    """Model level, on the card: forward and every parameter's gradient
+    through the kernel pair (weights reach it as transposed views) equal the
+    plain tail's on the same device: 1e-5 and 1e-4 x max|plain|."""
+    from p2igan_tpu_torch.models import DKGenerator, STDKGenerator
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    klass = DKGenerator if family == "dk" else STDKGenerator
+    rng = np.random.default_rng(12)
+    b, t, hw, k = 3, 4, 40, 7
+    masks = np.zeros((b, t, hw * hw, 1), np.float32)
+    masks[:, :, rng.choice(hw * hw, k, replace=False)] = 1.0
+    masks = torch.from_numpy(masks.reshape(b, t, hw, hw, 1)).to(dev)
+    frames = torch.from_numpy(rng.random((b, t, hw, hw, 1), dtype=np.float32)).to(dev)
+    weight = torch.from_numpy(rng.standard_normal((b, t, hw, hw, 1))
+                              .astype(np.float32)).to(dev)
+    gen = klass(length=t, visible_k=k, shared_batch_mask=True, device=dev,
+                generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for m in gen._mlp.net:
+            if hasattr(m, "bias"):
+                m.bias.normal_(std=0.1)
+    results = {}
+    for fused in (None, False):
+        gen.fused_tail = fused
+        gen.zero_grad(set_to_none=True)
+        before = (M.mlp_tail_fused.launches, M.mlp_tail_bwd.launches)
+        out = gen(frames * masks, masks)
+        (out * weight).sum().backward()
+        torch.cuda.synchronize()
+        launched = (M.mlp_tail_fused.launches - before[0],
+                    M.mlp_tail_bwd.launches - before[1])
+        assert launched == ((1, 1) if fused is None else (0, 0))
+        results[fused] = (out.detach(), {n: p.grad.clone()
+                                         for n, p in gen.named_parameters()})
+    (out_k, grads_k), (out_p, grads_p) = results[None], results[False]
+    assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
+    for name, want in grads_p.items():
+        scale = float(want.abs().max())
+        assert scale > 0, name
+        assert float((grads_k[name] - want).abs().max()) <= 1e-4 * scale, name

@@ -161,7 +161,7 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="shared-mask"):
         InputBlock(4, factored=False)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_generator_for_inference({"model": {"name": "dk"}})
+        build_generator_for_inference({"model": {"name": "simple"}})
     ckpt = tmp_path / "latest.ckpt"
     ckpt.write_bytes(b"\x80")
     assert resolve_checkpoint(tmp_path) == ckpt

@@ -1,14 +1,23 @@
-"""The PyTorch port must run where jax, flax and optax are not installed."""
+"""The PyTorch port must run where jax, flax, optax and the JAX package
+``p2igan_tpu`` are absent: it imports none of them and loads no file of
+``p2igan_tpu/`` by path; its config JSONs are its own copies."""
 
+import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "p2igan_tpu")
+PORT_FILES = sorted([*(REPO / "p2igan_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+                     *(REPO / "scripts").glob("*_torch.py")])
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
-blocked = ("jax", "jaxlib", "flax", "optax")
+blocked = ("jax", "jaxlib", "flax", "optax", "p2igan_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in blocked:
         del sys.modules[name]
@@ -35,4 +44,74 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
     n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 23, proc.stdout
+    assert n_modules >= 30, proc.stdout
+
+
+def _violations(path: Path):
+    """Imports of a blocked package, and string constants that name a ``.py``
+    file under ``p2igan_tpu/`` or build such a path (``"p2igan_tpu"`` as a
+    path component), outside docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
+                docstrings.add(id(body[0].value))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            names = []
+        for name in names:
+            if name.split(".")[0] in BLOCKED:
+                found.append(f"{path.name}:{node.lineno} imports {name}")
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            text = node.value
+            if text == "p2igan_tpu" or (text.startswith("p2igan_tpu/")
+                                        and text.endswith(".py")
+                                        and "/ops/pallas/" not in text):
+                found.append(f"{path.name}:{node.lineno} names {text!r}")
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_and_loads_nothing_of_the_jax_package(path):
+    """``replaces`` entries of chip_smoke.py name a TPU kernel's file:line
+    under ``p2igan_tpu/ops/pallas/``; they are labels, never opened."""
+    assert _violations(path) == []
+
+
+def test_the_scan_finds_what_it_should(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text('"""p2igan_tpu/config.py in a docstring is fine."""\n'
+                   "import os\nfrom p2igan_tpu.config import load_config\n"
+                   "import flax.linen as nn\n"
+                   "P = os.path.join('x', 'p2igan_tpu', 'utils')\n"
+                   "Q = 'p2igan_tpu/utils/tracking.py'\n")
+    got = _violations(bad)
+    assert len(got) == 4, got
+
+
+CONFIG_DIR = REPO / "p2igan_tpu_torch" / "config"
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CONFIG_DIR.glob("*.json")))
+def test_port_config_equals_its_original(name):
+    """The port ships its own copies of the configs it runs; they must not
+    drift from the JAX package's."""
+    ours = json.loads((CONFIG_DIR / name).read_text())
+    theirs = json.loads((REPO / "p2igan_tpu" / "config" / name).read_text())
+    assert ours == theirs
+
+
+def test_port_ships_the_configs_it_runs():
+    names = {p.name for p in CONFIG_DIR.glob("*.json")}
+    assert {"p2igan_baseline_eval.json", "p2igan_gan_baseline_gauge.json",
+            "dk_gauge.json", "stdk_gauge.json"} <= names
