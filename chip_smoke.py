@@ -52,10 +52,30 @@
      kernels equal to the steps (plus the validation forwards), every
      parameter's last gradient finite and non-zero, and a 6-step resume whose
      last 4 steps run under ``torch.profiler`` (idle share, time by kernel).
-7. Prints the card, a JSON line of the seven kernels (time, plain version's
-   time, the bound from this run's shapes and what sets it, launches on the
-   kernel's main path), then ``{"ok": true, "device": ...}`` as the last
-   line. Any failed check exits non-zero without that line.
+7. The simple family at full width (base 64, T=16, 128x128, seeded weights,
+   BatchNorm statistics away from identity; the shipped p2igan configs with
+   ``model`` set to ``{"name": "simple", "in_channels": 1, "base_channels":
+   64}``):
+   - the fused enc0 convolution (enc0_conv3d_leaky, Cin 2 -> 64) and the fused
+     dec2 convolution (conv3d_cout1_sigmoid, 64 -> 1) against their plain
+     versions (``F.conv3d`` + activation) at the serving chunk (B=8) and at an
+     odd shape: |kernel - plain| <= 5e-6 + 1e-5 |plain| (summation order over
+     1.3e8 outputs; whether 1e-6 held is printed); both sides' distance to a
+     float64 plain version; the cuDNN chain timed as ``library_ms``; and the
+     neighbouring cuDNN layers timed in both 5-D memory formats;
+   - serves the two fake events through ``scripts/infer_torch.py`` with both
+     kernels (2 launches of each an event) and once with dec2 through cuDNN
+     (``model.dec2_fused`` false), each against the port's plain CPU path;
+   - trains 15 rec-loss steps and 15 hinge-GAN steps (against the simple
+     BatchNorm critic) at batch 12 through ``scripts/train_torch.py``: every
+     parameter's last gradient finite and non-zero, running statistics moved,
+     peak device memory, then a 6-step resume whose last 4 steps run under
+     ``torch.profiler``.
+8. Prints the card, a JSON line of the nine kernels (time, plain version's
+   time, the bound from this run's shapes and what sets it, the library
+   chain's time where there is one, launches on the kernel's main path), then
+   ``{"ok": true, "device": ...}`` as the last line. Any failed check exits
+   non-zero without that line.
 """
 
 from __future__ import annotations
@@ -81,13 +101,18 @@ from p2igan_tpu_torch.data.stores import store_compressor
 from p2igan_tpu_torch.inference.driver import (SlidingWindowReconstructor,
                                                load_generator, set_precision_policy)
 from p2igan_tpu_torch.losses import reconstruction_loss
-from p2igan_tpu_torch.models import DKGenerator, P2IGenerator, STDKGenerator
+from p2igan_tpu_torch.models import (DKGenerator, P2IGenerator, SimpleGenerator,
+                                     STDKGenerator)
 from p2igan_tpu_torch.ops import cuda_lib, idw_factored_kernel, layers
 from p2igan_tpu_torch.ops.dk_mlp_kernel import (mlp_tail_bwd, mlp_tail_bwd_reference,
                                                 mlp_tail_fused, mlp_tail_reference)
 from p2igan_tpu_torch.ops.decode_mask import (decode_normalize_mask,
                                               decode_normalize_mask_reference)
+from p2igan_tpu_torch.ops.dec2_stencil import (conv3d_cout1_sigmoid,
+                                               conv3d_cout1_sigmoid_reference)
 from p2igan_tpu_torch.ops.doconv import make_d_diag
+from p2igan_tpu_torch.ops.enc0_conv import (enc0_conv3d_leaky,
+                                            enc0_conv3d_leaky_reference)
 from p2igan_tpu_torch.ops.idw import factored_prepare_full, gauge_geometry
 from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_table_multi, combine_table_multi_bwd, combine_table_multi_bwd_reference,
@@ -95,6 +120,7 @@ from p2igan_tpu_torch.ops.idw_factored_kernel import (
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
 from p2igan_tpu_torch.ops.wendland import build_phi_space
+from p2igan_tpu_torch.training.trainer import device_busy_us
 
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "p2igan_tpu_torch" / "config"
@@ -131,10 +157,18 @@ KERNELS = {
                        "p2igan_tpu/ops/pallas/dk_mlp_kernel.py:89"),
     "mlp_tail_bwd": (mlp_tail_bwd, "p2igan_tpu_torch/csrc/dk_mlp_tail_bwd.cu",
                      "p2igan_tpu/ops/pallas/dk_mlp_kernel.py:225"),
+    "enc0_conv3d_leaky": (enc0_conv3d_leaky, "p2igan_tpu_torch/csrc/enc0_conv.cu",
+                          "p2igan_tpu/ops/pallas/enc0_conv.py:106"),
+    "conv3d_cout1_sigmoid": (conv3d_cout1_sigmoid,
+                             "p2igan_tpu_torch/csrc/dec2_stencil.cu",
+                             "p2igan_tpu/ops/pallas/dec2_stencil.py:105"),
 }
 SERVING_KERNELS = ("gauge_topk", "combine_table_multi", "maxpool2_duplicate")
 # the path whose launch count each kernel reports in the kernels line
-LAUNCH_PATH = {"mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training"}
+LAUNCH_PATH = {"mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training",
+               "enc0_conv3d_leaky": "simple serving",
+               "conv3d_cout1_sigmoid": "simple serving"}
+SIMPLE_MODEL = {"name": "simple", "in_channels": 1, "base_channels": BASE}
 
 
 def fail(msg: str) -> None:
@@ -162,7 +196,8 @@ def bound(nbytes: float, flops: float) -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the operations at
     the float32 rate, whichever is larger. No single PyTorch call computes
-    any of these kernels' functions, so ``library_ms`` is null for all."""
+    the function of a kernel that uses this default, so ``library_ms`` is null
+    there; the two fused convolutions set it to their cuDNN chain's time."""
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -737,66 +772,363 @@ def host_loader_rate(tmp: Path) -> float:
     return rate
 
 
-def train_rec(tmp: Path, card: str, dev, model: str) -> tuple:
-    """dk or stdk through scripts/train_torch.py on the shipped gauge config:
-    reconstruction loss only (use_gan 0), AdamNoMu, 5 warm-up + 10 timed
-    steps at batch 12. Then a resume for 6 more steps, the last 4 under the
-    trainer's torch.profiler window (kept out of the timed run, which it
-    would slow): device idle share and time by kernel."""
+def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> tuple:
+    """One family through scripts/train_torch.py from the config ``cfg`` (a
+    shipped one pointed at the fake tree): 5 warm-up + 10 timed steps at batch
+    12; ``expected(steps, val_batches)`` gives the kernel launches the run
+    must show, every other kernel none. Every parameter of the generator (and
+    of the critic under ``use_gan``) ends with a finite non-zero gradient, and
+    every BatchNorm running statistic has moved. Then a resume (which must
+    restore every weight and buffer) for 6 more steps, the last 4 under the
+    trainer's torch.profiler window (kept out of the timed run, which it would
+    slow): device idle share and time by kernel."""
     train_torch = load_script("train_torch")
-    cfg = write_train_tree(tmp, DK_FAMILY[model][1])
-    if cfg["loss"]["use_gan"] or cfg["model"]["name"] != model:
-        fail(f"{DK_FAMILY[model][1].name} is no longer a rec-loss {model} config")
-    cfg["save_dir"] = str(tmp / f"weights_train_{model}")
-    cfg_path = tmp / f"train_{model}.json"
+    tag = label.replace(" ", "_")
+    cfg["save_dir"] = str(tmp / f"weights_train_{tag}")
+    cfg_path = tmp / f"train_{tag}.json"
     cfg_path.write_text(json.dumps(cfg))
     argv = ["--config", str(cfg_path), "--device", dev.type, "--log-level", "WARNING"]
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_torch.main(train_torch.parse_args(argv))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = read_launches()
     steps = WARMUP_STEPS + TIMED_STEPS
-    val_batches = len(trainer.val_loader)
-    if trainer.global_step != steps or not np.isfinite(trainer.last_rec_loss):
-        fail(f"{model} trained {trainer.global_step} steps, rec {trainer.last_rec_loss}")
-    if (launches["mlp_tail_fused"], launches["mlp_tail_bwd"]) != (steps + val_batches, steps):
-        fail(f"{model} training launched {launches}, expected {steps} + "
-             f"{val_batches} validation forwards and {steps} backwards")
-    for name, prm in trainer.generator.named_parameters():
-        if prm.grad is None or not bool(torch.isfinite(prm.grad).all()) \
-                or float(prm.grad.abs().max()) == 0.0:
-            fail(f"{model} parameter {name} has no finite non-zero gradient")
+    use_gan = bool(cfg["loss"]["use_gan"])
+    losses = [trainer.last_rec_loss] + ([trainer.last_adv_loss, trainer.last_dis_loss]
+                                        if use_gan else [])
+    if trainer.global_step != steps or not all(np.isfinite(losses)):
+        fail(f"{label} trained {trainer.global_step} steps, losses {losses}")
+    if (trainer.discriminator is not None) != use_gan:
+        fail(f"{label}: discriminator {trainer.discriminator}")
+    want = {**dict.fromkeys(launches, 0), **expected(steps, len(trainer.val_loader))}
+    if launches != want:
+        fail(f"{label} training launched {launches}, expected {want}")
+    modules = [trainer.generator] + ([trainer.discriminator] if use_gan else [])
+    n_params = 0
+    for module in modules:
+        for name, prm in module.named_parameters():
+            n_params += 1
+            # the critic's head.bias may be exactly zero: while both hinges are
+            # active for every sample its real and fake halves cancel
+            may_be_zero = module is trainer.discriminator and name == "head.bias"
+            if prm.grad is None or not bool(torch.isfinite(prm.grad).all()) \
+                    or (float(prm.grad.abs().max()) == 0.0 and not may_be_zero):
+                fail(f"{label} parameter {name} has no finite non-zero gradient")
+        for name, buf in module.named_buffers():
+            if "running_" not in name:
+                continue
+            moved = float((buf - (1.0 if name.endswith("running_var") else 0.0)).abs().max())
+            if not (bool(torch.isfinite(buf).all()) and moved > 0.0):
+                fail(f"{label} buffer {name} did not move from its initial value")
     (s0, t_0), (s1, t_1) = trainer.log_times[0], trainer.log_times[-1]
     if (s0, s1) != (WARMUP_STEPS, steps):
         fail(f"log points {trainer.log_times}")
     sps = (s1 - s0) / (t_1 - t_0)
-    print(f"{model} training: {s1} rec-loss steps at batch {TRAIN_BATCH}, T={LENGTH}, "
-          f"{H}x{W} in {seconds:.2f} s (run incl. set-up and validation); "
-          f"{sps:.3f} steps/s over steps {s0 + 1}-{s1} on {card}; mean rec "
-          f"{trainer.last_rec_loss:.5f}; all {len(list(trainer.generator.parameters()))} "
-          f"parameters' gradients finite and non-zero; launches {launches}")
+    print(f"{label} training: {s1} steps at batch {TRAIN_BATCH}, T={LENGTH}, {H}x{W} in "
+          f"{seconds:.2f} s (run incl. set-up and validation); {sps:.3f} steps/s over "
+          f"steps {s0 + 1}-{s1} on {card}; mean losses (rec, adv, dis) {losses}; all "
+          f"{n_params} parameters' gradients finite and non-zero; peak device memory "
+          f"{peak_gb:.2f} GB; launches {launches}")
     latest = Path(cfg["save_dir"]) / "latest.ckpt"
     if not latest.exists():
-        fail(f"{model} training wrote no latest.ckpt")
-    prof = tmp / f"profile_{model}"
+        fail(f"{label} training wrote no latest.ckpt")
+    saved = {k: v.clone() for k, v in trainer.generator.state_dict().items()}
+    prof = tmp / f"profile_{tag}"
     cfg["train"].update(iterations=s1 + 6, max_epochs=2, profile_dir=str(prof),
                         profile_start_step=s1 + 2, profile_steps=4)
     cfg_path.write_text(json.dumps(cfg))
+    restored = train_torch.Trainer(load_config(cfg_path), device=dev.type)
+    restored.load(latest)
+    for key, val in restored.generator.state_dict().items():
+        if not torch.equal(val, saved[key]):
+            fail(f"{label}: resume did not restore {key}")
     resumed = train_torch.main(train_torch.parse_args(argv + ["--resume", str(latest)]))
     if resumed.global_step != s1 + 6 or not np.isfinite(resumed.last_rec_loss):
-        fail(f"{model} resume ended at step {resumed.global_step}")
+        fail(f"{label} resume ended at step {resumed.global_step}")
+    print(f"{label}: resume restored every weight and buffer and continued to step "
+          f"{resumed.global_step}; " + profile_report(prof))
+    return launches, sps
+
+
+def train_rec(tmp: Path, card: str, dev, model: str) -> tuple:
+    """dk or stdk on the shipped gauge config: reconstruction loss only
+    (use_gan 0), AdamNoMu; the tail forward runs once a step and a validation
+    batch, its backward once a step."""
+    cfg = write_train_tree(tmp, DK_FAMILY[model][1])
+    if cfg["loss"]["use_gan"] or cfg["model"]["name"] != model:
+        fail(f"{DK_FAMILY[model][1].name} is no longer a rec-loss {model} config")
+    return train_family(tmp, card, dev, model, cfg, lambda steps, val: {
+        "mlp_tail_fused": steps + val, "mlp_tail_bwd": steps})
+
+
+# -- the simple family --------------------------------------------------------
+
+def conv_excess(got: torch.Tensor, want: torch.Tensor, atol: float) -> tuple:
+    """(max abs error, worst |got - want| - (atol + 1e-5 |want|)): the second
+    is <= 0 when the pair meets rtol 1e-5 and the atol."""
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff - (atol + 1e-5 * want.abs())).max())
+
+
+def check_fused_conv(dev, name: str, kernel, plain, chain, shapes, make) -> dict:
+    """One of the two fused convolutions against its plain version, at the
+    serving chunk (first shape: timed, and the one the kernels line reports)
+    and at an odd shape: rtol 1e-5, atol 5e-6. The CPU tests hold the same
+    functions to the JAX package's atol 1e-6; over the 1.3e8 outputs of the
+    serving chunk the float32 summation-order difference between the kernel
+    and cuDNN reaches 1.4e-6 at outputs near zero, each side as far from the
+    float64 result, so the card's check states 5e-6 and prints whether 1e-6
+    held too. ``make(shape)`` gives (x, weight, bias) with x in the
+    memory order the simple generator hands over; ``chain(x, weight, bias)``
+    is the cuDNN chain on channels-first tensors (two library calls)."""
+    result = {}
+    for shape in shapes:
+        x, weight, bias = make(shape)
+        with torch.no_grad():
+            out_k, out_p = kernel(x, weight, bias), plain(x, weight, bias)
+            out_64 = plain(x.double(), weight.double(), bias.double())
+        torch.cuda.synchronize()
+        if out_k.shape != out_p.shape:
+            fail(f"{name}{shape}: shape {tuple(out_k.shape)} vs {tuple(out_p.shape)}")
+        err, excess = conv_excess(out_k, out_p, 5e-6)
+        strict = conv_excess(out_k, out_p, 1e-6)[1] <= 0.0
+        e_k64 = float((out_k.double() - out_64).abs().max())
+        e_p64 = float((out_p.double() - out_64).abs().max())
+        del out_64
+        if not excess <= 0.0:
+            fail(f"{name}{shape}: max abs err {err}, {excess} over rtol 1e-5 atol 5e-6")
+        line = (f"{name}{shape}: max abs err {err:.3e} (within rtol 1e-5, atol 5e-6; "
+                f"within atol 1e-6: {strict}); to float64: kernel {e_k64:.3e}, "
+                f"plain {e_p64:.3e}")
+        if not result:
+            # the chain gets cuDNN's own layouts, already contiguous
+            xc = x.permute(0, 4, 1, 2, 3).contiguous()
+            wc = weight.permute(4, 3, 0, 1, 2).contiguous()
+            with torch.no_grad():
+                k_ms = cuda_ms(lambda: kernel(x, weight, bias))
+                p_ms = cuda_ms(lambda: plain(x, weight, bias), reps=10)
+                lib_ms = cuda_ms(lambda: chain(xc, wc, bias), reps=10)
+            b_, t_, h_, w_, cin = x.shape
+            cout = weight.shape[4]
+            voxels = b_ * t_ * h_ * w_
+            flops = voxels * cout * (2 * 27 * cin + 3)
+            nbytes = 4 * (x.numel() + out_k.numel() + weight.numel() + bias.numel())
+            bnd = {**bound(nbytes, flops), "library_ms": lib_ms}
+            line += (f"; kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+                     f"{nbytes / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, cuDNN chain "
+                     f"(conv, then activation) {lib_ms:.4f} ms, bound "
+                     f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd}
+        print(line)
+    return result
+
+
+def check_enc0(dev) -> dict:
+    """Kernel #14: x is channels-last (B, T, H, W, Cin), as the concatenated
+    (masked, mask) frames arrive. Weights U(+-1/sqrt(fan_in)), the init."""
+    rng = np.random.default_rng(SEED + 14)
+
+    def make(shape):
+        b, t, h, w, cin, cout = shape
+        bound_ = 1.0 / np.sqrt(27 * cin)
+        return (torch.from_numpy(rng.standard_normal((b, t, h, w, cin)).astype(np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(-bound_, bound_, (3, 3, 3, cin, cout))
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(dev))
+
+    def chain(xc, wc, bias):
+        return torch.nn.functional.leaky_relu(
+            torch.nn.functional.conv3d(xc, wc, bias, padding=1), 0.2)
+
+    return check_fused_conv(dev, "enc0_conv3d_leaky", enc0_conv3d_leaky,
+                            enc0_conv3d_leaky_reference, chain,
+                            [(WINDOW_BATCH, LENGTH, H, W, 2, BASE), (2, 3, 37, 45, 3, 40)],
+                            make)
+
+
+def check_dec2(dev) -> dict:
+    """Kernel #15: x is channels-first in memory, as cuDNN's transposed
+    convolution leaves it, and non-negative (it follows a ReLU)."""
+    rng = np.random.default_rng(SEED + 15)
+
+    def make(shape):
+        b, t, h, w, c = shape
+        bound_ = 1.0 / np.sqrt(27 * c)
+        x = torch.from_numpy(rng.standard_normal((b, c, t, h, w)).astype(np.float32))
+        return (torch.relu(x.to(dev)).permute(0, 2, 3, 4, 1),
+                torch.from_numpy(rng.uniform(-bound_, bound_, (3, 3, 3, c, 1))
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(rng.standard_normal(1).astype(np.float32) * 0.1).to(dev))
+
+    def chain(xc, wc, bias):
+        return torch.sigmoid(torch.nn.functional.conv3d(xc, wc, bias, padding=1))
+
+    return check_fused_conv(dev, "conv3d_cout1_sigmoid", conv3d_cout1_sigmoid,
+                            conv3d_cout1_sigmoid_reference, chain,
+                            [(WINDOW_BATCH, LENGTH, H, W, BASE), (2, 3, 37, 45, 5)], make)
+
+
+def time_conv_layouts(dev) -> None:
+    """The two cuDNN layers next to the kernels, at the serving chunk, in both
+    memory formats PyTorch offers for 5-D tensors: what the choice of
+    channels-first activations between #14, cuDNN and #15 rests on."""
+    gen = torch.Generator().manual_seed(SEED)
+    cl = torch.channels_last_3d
+    x = torch.randn((WINDOW_BATCH, BASE, LENGTH, H, W), generator=gen).to(dev)
+    w_enc1 = (torch.randn((2 * BASE, BASE, 3, 3, 3), generator=gen) * 0.02).to(dev)
+    y = torch.randn((WINDOW_BATCH, 2 * BASE, LENGTH // 2, H // 2, W // 2), generator=gen).to(dev)
+    w_dec1 = (torch.randn((2 * BASE, BASE, 2, 2, 2), generator=gen) * 0.02).to(dev)
+    conv, conv_t = torch.nn.functional.conv3d, torch.nn.functional.conv_transpose3d
+    with torch.no_grad():
+        x_cl, w_enc1_cl = x.contiguous(memory_format=cl), w_enc1.contiguous(memory_format=cl)
+        y_cl, w_dec1_cl = y.contiguous(memory_format=cl), w_dec1.contiguous(memory_format=cl)
+        times = [cuda_ms(fn, reps=7) for fn in (
+            lambda: conv(x, w_enc1, None, 2, 1), lambda: conv(x_cl, w_enc1_cl, None, 2, 1),
+            lambda: conv_t(y, w_dec1, None, 2), lambda: conv_t(y_cl, w_dec1_cl, None, 2))]
+    print("cuDNN float32 at the serving chunk, channels-first vs channels_last_3d: enc1 "
+          f"(64 -> 128, stride 2) {times[0]:.4f} vs {times[1]:.4f} ms; dec1 (transposed, "
+          f"128 -> 64, stride 2) {times[2]:.4f} vs {times[3]:.4f} ms")
+
+
+def write_simple_serving(tmp: Path, dec2_fused: bool) -> tuple:
+    """A seeded full-width simple generator as a reference-layout .pt (its
+    BatchNorm affine and running statistics moved away from identity, so the
+    fold is exercised; ``num_batches_tracked`` entries as a reference
+    checkpoint carries them) and the shipped eval config with ``model``
+    replaced."""
+    checkpoint = tmp / "SIMPLE_seeded.pt"
+    if not checkpoint.exists():
+        gen = SimpleGenerator(base_channels=BASE,
+                              generator=torch.Generator().manual_seed(SEED))
+        state = gen.state_dict()
+        rng = torch.Generator().manual_seed(SEED + 1)
+        for i in range(3):
+            n = state[f"encoder.{i}.1.weight"].shape[0]
+            state[f"encoder.{i}.1.weight"] = 1.0 + 0.3 * torch.randn(n, generator=rng)
+            state[f"encoder.{i}.1.bias"] = 0.2 * torch.randn(n, generator=rng)
+            state[f"encoder.{i}.1.running_mean"] = 0.1 * torch.randn(n, generator=rng)
+            state[f"encoder.{i}.1.running_var"] = torch.exp(0.5 * torch.randn(n, generator=rng))
+            state[f"encoder.{i}.1.num_batches_tracked"] = torch.tensor(1000)
+        torch.save(state, checkpoint)
+    cfg = load_config(tmp / "eval.json")
+    cfg["model"] = {**SIMPLE_MODEL, "dec2_fused": dec2_fused}
+    cfg["save_dir"] = str(tmp / "weights_simple")
+    cfg_path = tmp / f"eval_simple_{int(dec2_fused)}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    return cfg_path, checkpoint
+
+
+def serve_simple(tmp: Path, card: str, dev) -> dict:
+    """Both kernels on, then dec2 through cuDNN; 64-frame events at stride 16,
+    overlap 12 are 16 windows, two generator calls at window batch 8."""
+    calls = EVENTS * (-(-(EVENT_FRAMES // 4) // WINDOW_BATCH))
+    launches = {}
+    for fused in (True, False):
+        cfg_path, checkpoint = write_simple_serving(tmp, fused)
+        label = "simple" if fused else "simple_dec2_cudnn"
+        got, events_per_s = serve(tmp, cfg_path, checkpoint, label,
+                                  required=("enc0_conv3d_leaky",))
+        want = (calls, calls if fused else 0)
+        if (got["enc0_conv3d_leaky"], got["conv3d_cout1_sigmoid"]) != want:
+            fail(f"{label} serving launched {got}, expected enc0 x{want[0]}, dec2 x{want[1]}")
+        check_against_cpu(tmp, cfg_path, checkpoint, label, dev)
+        print(f"{label} serving (dec2_fused={fused}): {events_per_s:.4f} events/s on {card}")
+        if fused:
+            launches = got
+            profile_simple_serving(tmp, cfg_path, checkpoint, dev)
+    return launches
+
+
+def profile_simple_serving(tmp: Path, cfg_path: Path, checkpoint: Path, dev) -> None:
+    """One 64-frame event through the folded generator under torch.profiler:
+    device time by operation and the idle share. The activations stay
+    channels-first between the two kernels and cuDNN, so no copy of a
+    (8, 64, 16, 128, 128) activation may show: copy kernels on the device
+    (the two small weight permutes a call) must stay under 2% of the kernel
+    time; one such copy a call would be 4% or more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = load_config(cfg_path)
+    ev = zarrlite.open(tmp / "test_events.zarr", mode="r")["event_01"][:]
+    ev = ev[..., None].astype(np.float32) / 255.0
+    mask = np.loadtxt(cfg["data"]["test"]["mask"]["file"]).astype(np.float32)
+    masks = np.broadcast_to(mask[None, :, :, None], ev.shape).astype(np.float32)
+    recon = SlidingWindowReconstructor(load_generator(cfg, checkpoint, dev), stride=16,
+                                       overlap=12, window_batch=WINDOW_BATCH)
+    recon(ev * masks, masks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        recon(ev * masks, masks)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = device_busy_us(prof)
+    rows = sorted((r for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r.self_device_time_total)
+    total = sum(r.self_device_time_total for r in rows)
+    # copies made on the device (a layout conversion would be one); the
+    # event's transfers over PCIe are named Memcpy HtoD / DtoH
+    copies = sum(r.self_device_time_total for r in rows
+                 if "copy" in r.key.lower() and "HtoD" not in r.key and "DtoH" not in r.key)
+    print(f"simple serving profile, one {EVENT_FRAMES}-frame event (2 generator calls): "
+          f"wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, idle share "
+          f"{1.0 - busy_us / wall_us:.3f}; copy kernels on the device {copies / 1e3:.3f} ms "
+          f"= {copies / total:.4f} of kernel time; kernels by device time (ms, calls):\n  "
+          + "\n  ".join(f"{r.key[:90]} {r.self_device_time_total / 1e3:.3f} {r.count}"
+                        for r in rows[:14]))
+    if not copies <= 0.02 * total:
+        fail(f"simple serving copies {copies / total:.3f} of its device time: a layout "
+             f"conversion sits between the kernels and cuDNN")
+
+
+def simple_step_flops(use_gan: bool) -> float:
+    """Convolution operations of one simple train step at batch 12, from the
+    layer shapes: 3 x the generator's forward (forward, input gradient, weight
+    gradient) and, under the GAN, 8 x the critic's (three forwards, two full
+    backwards, one input-gradient pass for the generator's loss)."""
+    def conv(voxels, cin, cout, taps):
+        return 2.0 * TRAIN_BATCH * voxels * cin * cout * taps
+
+    full, half, quarter = (LENGTH * H * W // 8 ** i for i in range(3))
+    gen = (conv(full, 2, BASE, 27) + conv(half, BASE, 2 * BASE, 27)
+           + conv(quarter, 2 * BASE, 4 * BASE, 27) + conv(quarter, 4 * BASE, 2 * BASE, 8)
+           + conv(half, 2 * BASE, BASE, 8) + conv(full, BASE, 1, 27))
+    disc = (conv(half, 1, BASE, 27) + conv(quarter, BASE, 2 * BASE, 27)
+            + conv(quarter // 8, 2 * BASE, 4 * BASE, 27))
+    return 3.0 * gen + (8.0 * disc if use_gan else 0.0)
+
+
+def train_simple(tmp: Path, card: str, dev, use_gan: bool) -> tuple:
+    """simple on the shipped GAN gauge config with ``model`` replaced: rec-loss
+    only, or the hinge GAN against the simple BatchNorm critic. It trains on
+    cuDNN alone: no kernel of the port may launch."""
+    cfg = write_train_tree(tmp)
+    cfg["model"] = dict(SIMPLE_MODEL)
+    cfg["loss"]["use_gan"] = int(use_gan)
+    label = "simple GAN" if use_gan else "simple rec-loss"
+    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {})
+    flops = simple_step_flops(use_gan)
+    print(f"{label}: a step's convolutions are {flops / 1e12:.3f} TFLOP, "
+          f"{flops / PEAK_FLOPS * 1e3:.2f} ms at the float32 peak; measured "
+          f"{1e3 / sps:.2f} ms a step: {flops / PEAK_FLOPS * sps:.3f} of the bound's rate")
+    return launches, sps
+
+
+def profile_report(prof: Path) -> str:
+    """The trainer's profiler window as text: idle share, top rows by device time."""
     summary = json.loads((prof / "summary.json").read_text())
     rows = [" ".join(line.split()) for line in
             (prof / "key_averages.txt").read_text().splitlines()[3:9]]
-    print(f"{model}: resume from latest.ckpt continued to step {resumed.global_step}; "
-          f"profile of its last {summary['steps']} steps: wall "
-          f"{summary['wall_ms']:.2f} ms, device busy {summary['device_busy_ms']:.2f} ms, "
-          f"idle share {summary['device_idle_share']:.3f}; top rows by device time "
-          f"(name, self CPU %, self CPU, CPU total %, CPU total, CPU avg, self CUDA, "
-          f"self CUDA %, CUDA total, CUDA avg, calls):\n  " + "\n  ".join(rows))
-    return launches, sps
+    return (f"profile of its last {summary['steps']} steps: wall "
+            f"{summary['wall_ms']:.2f} ms, device busy {summary['device_busy_ms']:.2f} ms, "
+            f"idle share {summary['device_idle_share']:.3f}; top rows by device time "
+            f"(name, self CPU %, self CPU, CPU total %, CPU total, CPU avg, self CUDA, "
+            f"self CUDA %, CUDA total, CUDA avg, calls):\n  " + "\n  ".join(rows))
 
 
 def main() -> int:
@@ -828,7 +1160,10 @@ def main() -> int:
                "combine_table_multi_bwd": check_combine_bwd(masks),
                "decode_normalize_mask": check_decode(dev),
                "mlp_tail_fused": check_mlp_tail(dev),
-               "mlp_tail_bwd": check_mlp_tail_bwd(dev)}
+               "mlp_tail_bwd": check_mlp_tail_bwd(dev),
+               "enc0_conv3d_leaky": check_enc0(dev),
+               "conv3d_cout1_sigmoid": check_dec2(dev)}
+    time_conv_layouts(dev)
 
     paths = {}  # launches of every kernel, per path driven
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -853,6 +1188,11 @@ def main() -> int:
             print(f"{model} serving: {events_per_s:.4f} events/s on {card}")
             paths[f"{model} training"], sps = train_rec(tmp, card, dev, model)
             print(f"{model} training: {sps:.4f} steps/s on {card}")
+        paths["simple serving"] = serve_simple(tmp, card, dev)
+        for use_gan in (False, True):
+            label = "simple GAN training" if use_gan else "simple rec-loss training"
+            paths[label], sps = train_simple(tmp, card, dev, use_gan)
+            print(f"{label}: {sps:.4f} steps/s on {card}")
 
     print(json.dumps({"launches_by_path": paths}))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -97,7 +97,7 @@ class SlidingWindowReconstructor:
     def _supports_prepared_idw(self) -> bool:
         """True when the generator's IDW gauge selection is a constant of the
         event mask (the factored shared-mask path of p2igan) and is hoisted
-        out of the window loop; dk and stdk have no IDW."""
+        out of the window loop; dk, stdk and simple have no IDW."""
         gen = self.generator
         return bool(getattr(gen, "idw_factored", False)
                     and getattr(gen, "idw_shared_batch_mask", False))
@@ -184,7 +184,9 @@ def load_generator(cfg: Dict[str, Any], checkpoint_path: str | Path,
                    device: torch.device, fold_weights: bool = True):
     """The config's generator with the checkpoint's weights, folded for
     serving (p2igan: DO-conv kernels composed once; dk/stdk: the fused tail
-    switched on, weights unchanged) unless ``fold_weights`` is off."""
+    switched on, weights unchanged; simple: BatchNorm folded into the encoder
+    convolutions, enc0 and dec2 through the fused ops) unless ``fold_weights``
+    is off."""
     gen = build_generator_for_inference(cfg, device=device)
     gen.load_state_dict(load_generator_state(checkpoint_path))
     gen.eval()

@@ -1,6 +1,7 @@
 """Model registry of the port, keyed like the JAX package's
-(``p2igan_tpu/models/__init__.py``): ``model.name`` in {p2igan, dk, stdk};
-``simple`` is not ported yet."""
+(``p2igan_tpu/models/__init__.py``): ``model.name`` in {p2igan, dk, stdk,
+simple}; a missing name means simple, and every family but p2igan trains
+against the simple critic under ``use_gan``."""
 
 from __future__ import annotations
 
@@ -11,29 +12,30 @@ from torch import nn
 
 from .dk import DKGenerator, DKMLP  # noqa: F401
 from .p2igan import P2IDiscriminator, P2IGenerator
+from .simple import SimpleDiscriminator, SimpleGenerator
 from .stdk import STDKGenerator
 
 _DK_FAMILY = {"dk": DKGenerator, "stdk": STDKGenerator}
 
 
 def _model_name(cfg: Dict[str, Any]) -> str:
+    """Any name but p2igan, dk and stdk builds the simple family, as in the
+    JAX registry."""
     name = str(cfg.get("model", {}).get("name", "simple")).lower()
-    if name not in ("p2igan", *_DK_FAMILY):
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (ROADMAP queue 1 "
-            f"item 8); p2igan, dk and stdk are")
-    return name
+    return name if name in ("p2igan", *_DK_FAMILY) else "simple"
 
 
 def build_generator(cfg: Dict[str, Any], device=None,
                     generator: Optional[torch.Generator] = None) -> nn.Module:
     """The training generator, keyed by ``model.name`` (reference
     models/__init__.py): p2igan with factored (unfolded) DO-convs; dk/stdk
-    take ``sample_length`` from ``data_loader`` or ``data.train``."""
+    take ``sample_length`` from ``data_loader`` or ``data.train``; simple
+    takes its channel counts (and ``dec2_fused``) from ``model``."""
     name = _model_name(cfg)
     if name in _DK_FAMILY:
         return _DK_FAMILY[name].from_config(cfg, device=device, generator=generator)
-    return P2IGenerator.from_config(cfg, device=device, generator=generator)
+    klass = P2IGenerator if name == "p2igan" else SimpleGenerator
+    return klass.from_config(cfg, device=device, generator=generator)
 
 
 def build_generator_for_inference(cfg: Dict[str, Any], device=None,
@@ -60,15 +62,13 @@ def build_generator_for_inference(cfg: Dict[str, Any], device=None,
 
 def build_discriminator(cfg: Dict[str, Any], device=None,
                         generator: Optional[torch.Generator] = None
-                        ) -> P2IDiscriminator:
-    """The P2I discriminator; its 2-D branch takes in_channels * sample_length
-    channels. ``model.disc_branch3d_dtype`` (a bf16 3-D branch in the JAX
-    package) is not ported: anything but float32 raises. dk and stdk train
-    with the reconstruction loss only and have no discriminator here."""
+                        ) -> nn.Module:
+    """p2igan: the P2I discriminator, whose 2-D branch takes in_channels *
+    sample_length channels; ``model.disc_branch3d_dtype`` (a bf16 3-D branch in
+    the JAX package) is not ported: anything but float32 raises. Every other
+    family (simple, dk, stdk): the simple BatchNorm critic."""
     if _model_name(cfg) != "p2igan":
-        raise NotImplementedError(
-            "only p2igan has a discriminator in the port (the JAX package "
-            "pairs dk/stdk with the simple model's, ROADMAP queue 1 item 8)")
+        return SimpleDiscriminator.from_config(cfg, device=device, generator=generator)
     d3d = str(cfg.get("model", {}).get("disc_branch3d_dtype", "float32"))
     if d3d != "float32":
         raise NotImplementedError(
@@ -78,4 +78,5 @@ def build_discriminator(cfg: Dict[str, Any], device=None,
 
 
 __all__ = ["P2IGenerator", "P2IDiscriminator", "DKGenerator", "STDKGenerator",
+           "SimpleGenerator", "SimpleDiscriminator",
            "build_generator", "build_generator_for_inference", "build_discriminator"]

@@ -1,12 +1,15 @@
 """Weights across packages: JAX/flax variables -> the port's
 (reference-layout) torch state_dicts, and JAX optimizer state -> the port's.
 
-``state_dict_from_jax``, ``disc_state_dict_from_jax`` and
-``dk_state_dict_from_jax`` are the inverses of
-``p2igan_tpu/models/torch_import.py::import_p2igan_generator``,
-``import_p2igan_discriminator`` and ``import_dk_generator``. Accounting is strict both ways: every flax
-leaf must be used and every state_dict key of the structure must be filled,
-else it raises. ``D_diag`` is a constant of the DO-conv and is not emitted.
+``state_dict_from_jax``, ``disc_state_dict_from_jax``,
+``dk_state_dict_from_jax`` and ``simple_state_dict_from_jax`` are the inverses
+of ``p2igan_tpu/models/torch_import.py::import_p2igan_generator``,
+``import_p2igan_discriminator``, ``import_dk_generator`` and
+``import_simple_generator``; ``simple_disc_state_dict_from_jax`` has no importer
+to invert (the reference ships no simple critic checkpoint). Accounting is
+strict both ways: every flax leaf must be used and every state_dict key of the
+structure must be filled, else it raises. ``D_diag`` is a constant of the
+DO-conv and is not emitted.
 """
 
 from __future__ import annotations
@@ -129,6 +132,59 @@ def dk_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]
     return ex.finish()
 
 
+# DHWIO -> OIDHW; for a transposed conv (kt, kh, kw, out, in) -> torch's
+# (in, out, kt, kh, kw)
+_CONV3D_PERM = (4, 3, 0, 1, 2)
+_SIMPLE_DECODER = ((0, "dec0"), (2, "dec1"), (4, "dec2"))
+
+
+def _conv3d_blocks(ex: _Exporter, stats, blocks) -> None:
+    """flax ``Conv3dBlock``s -> ``<prefix>.0`` (Conv3d) and ``<prefix>.1``
+    (BatchNorm affine and, with ``stats``, its running statistics)."""
+    for fname, tprefix in blocks:
+        ex.conv((fname,), f"{tprefix}.0", _CONV3D_PERM)
+        ex.put(f"{tprefix}.1.weight", ex.take((fname, "bn", "scale")))
+        ex.put(f"{tprefix}.1.bias", ex.take((fname, "bn", "bias")))
+        if stats is not None:
+            ex.put(f"{tprefix}.1.running_mean", stats.take((fname, "bn", "mean")))
+            ex.put(f"{tprefix}.1.running_var", stats.take((fname, "bn", "var")))
+
+
+def _simple_params(ex: _Exporter, stats=None) -> None:
+    _conv3d_blocks(ex, stats, [(f"enc{i}", f"encoder.{i}") for i in range(3)])
+    for tidx, fname in _SIMPLE_DECODER:
+        ex.put(f"decoder.{tidx}.weight",
+               np.transpose(ex.take((f"{fname}_kernel",)), _CONV3D_PERM))
+        ex.put(f"decoder.{tidx}.bias", ex.take((f"{fname}_bias",)))
+
+
+def _simple_disc_params(ex: _Exporter, stats=None) -> None:
+    _conv3d_blocks(ex, stats, [(f"f{i}", f"features.{i}") for i in range(3)])
+    ex.put("head.weight", ex.take(("head_kernel",)).T)
+    ex.put("head.bias", ex.take(("head_bias",)))
+
+
+def _with_stats(variables: Dict[str, Any], fill) -> Dict[str, torch.Tensor]:
+    ex, stats = _Exporter(variables["params"]), _Exporter(variables["batch_stats"])
+    fill(ex, stats)
+    stats.finish()
+    return ex.finish()
+
+
+def simple_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax SimpleGenerator variables ({"params", "batch_stats"}) -> the
+    reference-layout state_dict the port's ``SimpleGenerator`` loads, running
+    statistics included."""
+    return _with_stats(variables, _simple_params)
+
+
+def simple_disc_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax SimpleDiscriminator variables ({"params", "batch_stats"}) -> the
+    port's ``SimpleDiscriminator`` state_dict (``features.{i}.{0,1}.*``,
+    ``head.*``)."""
+    return _with_stats(variables, _simple_disc_params)
+
+
 def remap_dk_visible_columns(state: Dict[str, torch.Tensor], order: np.ndarray,
                              n_space: int, n_time: int = 0, t_blocks: int = 1
                              ) -> Dict[str, torch.Tensor]:
@@ -165,7 +221,14 @@ def params_from_jax(module: nn.Module, params: Dict[str, Any]
     them) -> {port parameter name: tensor}."""
     from .dk import DKGenerator
     from .p2igan import P2IDiscriminator, P2IGenerator
+    from .simple import SimpleDiscriminator, SimpleGenerator
 
+    for klass, fill in ((SimpleGenerator, _simple_params),
+                        (SimpleDiscriminator, _simple_disc_params)):
+        if isinstance(module, klass):
+            ex = _Exporter(params)
+            fill(ex)
+            return ex.finish()
     if isinstance(module, P2IGenerator):
         return state_dict_from_jax({"params": params})
     if isinstance(module, DKGenerator):  # STDKGenerator too

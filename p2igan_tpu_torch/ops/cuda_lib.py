@@ -29,6 +29,9 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2igan_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
+# dynamic shared memory a block may opt in to on sm_90
+MAX_SHARED_BYTES = 232448
+
 _LOCK = threading.Lock()
 _LIB = None
 _BUILD_LOG = ""
@@ -47,6 +50,8 @@ _SIGNATURES = {
     "p2i_decode_normalize_mask": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "p2i_dk_mlp_tail": [_P] * 9 + [_I, _I, _I, _P],
     "p2i_dk_mlp_tail_bwd": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "p2i_enc0_conv3d_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "p2i_dec2_conv3d_sigmoid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -28,11 +28,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import cuda_lib
+from .cuda_lib import MAX_SHARED_BYTES
 
 MAX_HIDDEN = 104          # csrc/dk_mlp_tile.cuh: kTX * 8 output columns a block
 FWD_PIXELS_PER_BLOCK = 128  # csrc/dk_mlp_tail.cu kRows
 BWD_PIXELS_PER_BLOCK = 64   # csrc/dk_mlp_tail_bwd.cu kRows
-MAX_SHARED_BYTES = 232448   # dynamic shared memory a block may opt in to (sm_90)
 
 
 def _tail_chunk(phi_part, off, fc2, b2, fc3, b3, fc4, b4):

@@ -4,7 +4,9 @@
 ``p2igan_tpu/training/checkpoint.py`` with the JAX trainer's payload keys
 (``epoch``, ``global_step``, ``best_val``, ``generator{params,extra}``,
 ``optimizer_g``, ``discriminator{params,extra}``, ``optimizer_d``) in torch's
-format (``torch.save``; loaded with ``weights_only=True``). JAX msgpack
+format (``torch.save``; loaded with ``weights_only=True``). ``params`` holds
+what the optimizer updates, ``extra`` the module's buffers (BatchNorm running
+statistics of the simple family, spectral-norm vectors). JAX msgpack
 checkpoints do not load: they raise and name the conversion.
 ``resolve_checkpoint`` follows the JAX package (explicit path, else
 ``latest.ckpt``, else the newest ``*.ckpt``/``*.msgpack``/``*.pt`` under the

@@ -13,8 +13,18 @@ Counterpart of ``p2igan_tpu/training/steps.py`` (reference
      parameters; that D forward also advances the spectral ``u``;
   5. G update.
 
-Every training D forward advances the spectral-norm power iteration once
-(``update_stats=True``), as in the JAX package.
+Every training D forward advances the discriminator's state once
+(``update_stats=True``), as in the JAX package: the spectral-norm power
+iteration of the P2I discriminator, the BatchNorm running statistics of the
+simple critic (three times a step: fake, real, then the G-loss forward). A
+BatchNorm critic never sees fake and real concatenated, whatever
+``fused_disc_forward`` says: that would mix their batch statistics.
+
+BatchNorm state lives in module buffers here (the JAX package threads
+``batch_stats`` through ``gen_extra`` / ``disc_extra``), so what the steps
+reproduce is the mode: the train step's generator forward runs in ``train()``
+mode (batch statistics, running ones advanced), the eval step and the predict
+function in ``eval()`` mode (running statistics).
 
 The optimizer at beta1 == 0 (every shipped config) is :class:`AdamNoMu`, the
 arithmetic of the JAX package's ``_scale_by_adam_nomu`` (steps.py:60-87):
@@ -33,6 +43,7 @@ import torch
 from torch import nn
 
 from ..losses import gan_loss, reconstruction_loss
+from ..models.simple import SimpleDiscriminator
 
 
 class AdamNoMu(torch.optim.Optimizer):
@@ -120,15 +131,17 @@ def build_train_step(
                             target_real_label=gan_real_label,
                             target_fake_label=gan_fake_label)
     with_d = use_gan and disc is not None
+    fuse_d = fused_disc_forward and not isinstance(disc, SimpleDiscriminator)
 
     def step(frames, masked, masks) -> Dict[str, torch.Tensor]:
         metrics: Dict[str, torch.Tensor] = {}
+        gen.train()
         preds = gen_apply(masked, masks)
         preds0 = preds.detach()
 
         if with_d:
             opt_d.zero_grad(set_to_none=True)
-            if fused_disc_forward:
+            if fuse_d:
                 b = preds0.shape[0]
                 logits = disc(torch.cat([preds0, frames], dim=0), update_stats=True)
                 logits_fake, logits_real = logits[:b], logits[b:]
@@ -170,6 +183,7 @@ def build_eval_step(gen: nn.Module, *, k1_alpha: float = 0.0,
 
     @torch.no_grad()
     def step(frames, masked, masks) -> torch.Tensor:
+        gen.eval()
         loss, _ = reconstruction_loss(gen_apply(masked, masks), frames, k1_alpha)
         return loss
 
@@ -181,6 +195,7 @@ def build_predict_fn(gen: nn.Module, idw_prepared=None) -> Callable:
 
     @torch.no_grad()
     def predict(masked, masks) -> torch.Tensor:
+        gen.eval()
         return gen_apply(masked, masks)
 
     return predict

@@ -7,8 +7,11 @@ discriminator, their optimizers, the tracker run and the checkpoints:
 * models are seeded from explicit ``torch.Generator``s: ``seed`` for the
   generator, ``seed + 1`` for the discriminator; the data's per-item numpy RNG
   comes from (seed, epoch, index), as in the JAX package;
-* the stis gauge selection is hoisted out of the step at the first batch (the
-  mask is one fixed file, so the selection is a constant of the run);
+* the stis gauge selection of p2igan is hoisted out of the step at the first
+  batch (the mask is one fixed file, so the selection is a constant of the
+  run); dk, stdk and simple have no IDW to hoist;
+* BatchNorm running statistics (the simple generator and critic) are module
+  buffers: the steps set the mode, and checkpoints carry them under ``extra``;
 * a prefetch thread copies batches from pinned host memory with
   ``non_blocking`` copies on a side stream, ``lookahead`` batches ahead; the
   raw (``data.train.device_decode``) pipeline ships uint8 frames and masks and
@@ -43,6 +46,21 @@ from ..ops.decode_mask import decode_normalize_mask
 from ..utils.tracking import get_tracker
 from .checkpoint import load_checkpoint_raw, save_checkpoint
 from .steps import build_eval_step, build_predict_fn, build_train_step, make_optimizer
+
+
+def device_busy_us(prof) -> float:
+    """Microseconds in a ``torch.profiler`` window during which the device ran
+    something: the union of its device-side intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (0.0 if cur_e is None else cur_e - cur_s)
 
 
 class Trainer:
@@ -390,16 +408,7 @@ class Trainer:
         table = prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40)
         (out / "key_averages.txt").write_text(table)
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
-        busy, cur_s, cur_e = 0.0, None, None
-        for s, e in spans:
-            if cur_e is None or s > cur_e:
-                busy += 0.0 if cur_e is None else cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy += 0.0 if cur_e is None else cur_e - cur_s
+        busy = device_busy_us(prof)
         summary = {"steps": self.profile_steps, "wall_ms": wall_us / 1e3,
                    "device_busy_ms": busy / 1e3,
                    "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
@@ -409,20 +418,26 @@ class Trainer:
         logging.info("Profiler window written to %s: %s", out, summary)
 
     # -- checkpoints -------------------------------------------------------
+    @staticmethod
+    def _split_state(module: torch.nn.Module) -> Dict[str, Any]:
+        """``params`` (what the optimizer updates) and ``extra`` (buffers: the
+        BatchNorm running statistics, the spectral-norm vectors), the JAX
+        payload's two entries."""
+        names = {n for n, _ in module.named_parameters()}
+        state = module.state_dict()
+        return {"params": {k: v for k, v in state.items() if k in names},
+                "extra": {k: v for k, v in state.items() if k not in names}}
+
     def _save(self, path: Path, epoch: int) -> None:
         payload = {
             "epoch": epoch,
             "global_step": self.global_step,
             "best_val": self.best_val,
-            "generator": {"params": self.generator.state_dict(), "extra": {}},
+            "generator": self._split_state(self.generator),
             "optimizer_g": self.opt_g.state_dict(),
         }
         if self.discriminator is not None:
-            names = {n for n, _ in self.discriminator.named_parameters()}
-            state = self.discriminator.state_dict()
-            payload["discriminator"] = {
-                "params": {k: v for k, v in state.items() if k in names},
-                "extra": {k: v for k, v in state.items() if k not in names}}
+            payload["discriminator"] = self._split_state(self.discriminator)
             payload["optimizer_d"] = self.opt_d.state_dict()
         save_checkpoint(path, payload)
 

@@ -307,3 +307,125 @@ def test_dk_generators_through_the_kernels_match_the_plain_tail(dev, family):
         scale = float(want.abs().max())
         assert scale > 0, name
         assert float((grads_k[name] - want).abs().max()) <= 1e-4 * scale, name
+
+
+# -- the simple family's fused convolutions (csrc/enc0_conv.cu, dec2_stencil.cu) --
+
+def _held(got, want):
+    """rtol 1e-5, atol 5e-6. The CPU tests hold these functions to the JAX
+    package's atol 1e-6; on the card the kernel and cuDNN sum in different
+    orders, and over millions of outputs that difference reaches 1.4e-6 at
+    outputs near zero (each side is as far from a float64 result)."""
+    assert got.shape == want.shape
+    excess = (got - want).abs() - (5e-6 + 1e-5 * want.abs())
+    assert float(excess.max()) <= 0.0, float((got - want).abs().max())
+
+
+def _init_like(rng, shape, fan_in, dev):
+    """U(+-1/sqrt(fan_in)), the models' init: outputs of order one."""
+    bound = 1.0 / np.sqrt(fan_in)
+    return torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32)).to(dev)
+
+
+# odd sizes and ragged tiles, T=1 and T=3 windows, B>1 so that every window's
+# temporal edge is hit, Cin 1..4, Cout off the 32-channel pass
+ENC0_SHAPES = [(2, 4, 16, 16, 2, 16), (3, 3, 37, 45, 3, 40), (4, 1, 16, 33, 1, 8),
+               (2, 5, 17, 64, 4, 64), (1, 16, 128, 128, 2, 64)]
+
+
+@pytest.mark.parametrize("b,t,h,w,cin,cout", ENC0_SHAPES)
+def test_enc0_kernel_matches_plain(dev, b, t, h, w, cin, cout):
+    from p2igan_tpu_torch.ops import enc0_conv as E
+
+    rng = np.random.default_rng(b + t + h + w + cin + cout)
+    x = torch.from_numpy(rng.standard_normal((b, t, h, w, cin)).astype(np.float32)).to(dev)
+    k = _init_like(rng, (3, 3, 3, cin, cout), 27 * cin, dev)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(dev)
+    before = E.enc0_conv3d_leaky.launches
+    got = E.enc0_conv3d_leaky(x, k, bias)
+    torch.cuda.synchronize()
+    assert E.enc0_conv3d_leaky.launches == before + 1
+    assert got.permute(0, 4, 1, 2, 3).is_contiguous() and bool((got < 0).any())
+    _held(got, E.enc0_conv3d_leaky_reference(x, k, bias))
+    _held(E.enc0_conv3d_leaky(x, k, bias, slope=0.05),
+          E.enc0_conv3d_leaky_reference(x, k, bias, 0.05))
+    # a window alone gives what it gives inside the batch
+    _held(E.enc0_conv3d_leaky(x[-1:].contiguous(), k, bias), got[-1:])
+
+
+DEC2_SHAPES = [(2, 4, 16, 16, 8), (3, 3, 37, 45, 5), (4, 1, 16, 33, 1),
+               (2, 5, 33, 130, 16), (1, 16, 128, 128, 64)]
+
+
+@pytest.mark.parametrize("b,t,h,w,c", DEC2_SHAPES)
+def test_dec2_kernel_matches_plain(dev, b, t, h, w, c):
+    from p2igan_tpu_torch.ops import dec2_stencil as D
+
+    rng = np.random.default_rng(b + t + h + w + c)
+    x = torch.from_numpy(rng.standard_normal((b, t, h, w, c)).astype(np.float32)).to(dev)
+    k = _init_like(rng, (3, 3, 3, c, 1), 3 * c, dev)   # 3 x the init: logits of order one
+    bias = torch.from_numpy(rng.standard_normal(1).astype(np.float32) * 0.1).to(dev)
+    before = D.conv3d_cout1_sigmoid.launches
+    got = D.conv3d_cout1_sigmoid(x, k, bias)       # channels-last memory: copied
+    torch.cuda.synchronize()
+    assert D.conv3d_cout1_sigmoid.launches == before + 1
+    assert got.shape == (b, t, h, w, 1)
+    want = D.conv3d_cout1_sigmoid_reference(x, k, bias)
+    _held(got, want)
+    x_cf = x.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+    _held(D.conv3d_cout1_sigmoid(x_cf, k, bias), want)   # as the model hands it over
+    _held(D.conv3d_cout1_sigmoid(x[-1:], k, bias), got[-1:])
+    assert float(got.min()) > 0.0 and float(got.max()) < 1.0 and float(got.std()) > 0.01
+
+
+def test_fused_convs_reject_what_the_kernels_do_not_take(dev):
+    from p2igan_tpu_torch.ops import dec2_stencil as D
+    from p2igan_tpu_torch.ops import enc0_conv as E
+
+    x = torch.randn(1, 2, 8, 8, 2, device=dev)
+    k, bias = torch.randn(3, 3, 3, 2, 8, device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError):
+        E.enc0_conv3d_leaky(x.permute(0, 1, 3, 2, 4), k, bias)          # not contiguous
+    with pytest.raises(ValueError):
+        E.enc0_conv3d_leaky(torch.randn(1, 2, 8, 8, 5, device=dev),      # Cin > 4
+                            torch.randn(3, 3, 3, 5, 8, device=dev), bias)
+    with pytest.raises(TypeError):
+        E.enc0_conv3d_leaky(x.double(), k.double(), bias.double())
+    with pytest.raises(ValueError):
+        E.enc0_conv3d_leaky(x, k.cpu(), bias)                            # mixed devices
+    with pytest.raises(RuntimeError, match="forward-only"):
+        E.enc0_conv3d_leaky(x, k.requires_grad_(True), bias)
+    k2 = torch.randn(3, 3, 3, 2, 1, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        D.conv3d_cout1_sigmoid(x, k2, torch.zeros(1, device=dev))
+
+
+@pytest.mark.parametrize("dec2_fused", [True, False])
+def test_folded_simple_generator_card_equals_cpu(dev, dec2_fused):
+    """The folded serving module on the card (both kernels, cuDNN between
+    them) against the same module on the CPU (plain versions): atol 1e-5."""
+    from p2igan_tpu_torch.models import SimpleGenerator
+    from p2igan_tpu_torch.ops.dec2_stencil import conv3d_cout1_sigmoid
+    from p2igan_tpu_torch.ops.enc0_conv import enc0_conv3d_leaky
+
+    rng = np.random.default_rng(4)
+    gen = SimpleGenerator(base_channels=16, dec2_fused=dec2_fused,
+                          generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for block in gen.encoder:
+            block[1].weight.uniform_(0.7, 1.3)
+            block[1].bias.normal_(std=0.2)
+            block[1].running_mean.normal_(std=0.1)
+            block[1].running_var.uniform_(0.5, 2.0)
+    masks = (rng.random((3, 4, 24, 40, 1)) < 0.3).astype(np.float32)
+    masked = rng.random((3, 4, 24, 40, 1), dtype=np.float32) * masks
+    folded = gen.fold_for_inference()
+    with torch.inference_mode():
+        want = folded(torch.from_numpy(masked), torch.from_numpy(masks))
+        before = (enc0_conv3d_leaky.launches, conv3d_cout1_sigmoid.launches)
+        got = folded.to(dev)(torch.from_numpy(masked).to(dev),
+                             torch.from_numpy(masks).to(dev))
+    torch.cuda.synchronize()
+    assert (enc0_conv3d_leaky.launches - before[0],
+            conv3d_cout1_sigmoid.launches - before[1]) == (1, int(dec2_fused))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

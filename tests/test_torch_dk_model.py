@@ -17,7 +17,8 @@ from p2igan_tpu.models import DKGenerator as JaxDK
 from p2igan_tpu.models import STDKGenerator as JaxSTDK
 from p2igan_tpu.models import torch_import as TI
 from p2igan_tpu_torch.config import load_config
-from p2igan_tpu_torch.models import (DKGenerator, STDKGenerator, build_discriminator,
+from p2igan_tpu_torch.models import (DKGenerator, SimpleDiscriminator, SimpleGenerator,
+                                     STDKGenerator, build_discriminator,
                                      build_generator, build_generator_for_inference)
 from p2igan_tpu_torch.models import stdk as tstdk
 from p2igan_tpu_torch.models.convert import (dk_state_dict_from_jax, params_from_jax,
@@ -153,13 +154,16 @@ def test_registry_builds_the_shipped_configs(name, klass, feat):
         assert type(gen) is klass and gen.length == 16 and gen.visible_k == 79
         assert gen.shared_batch_mask  # stis masks
         assert gen._mlp.feature_dim == feat
-    with pytest.raises(NotImplementedError, match="discriminator"):
-        build_discriminator(cfg)
+    # under use_gan dk and stdk train against the simple critic, as in JAX
+    disc = build_discriminator(cfg, generator=torch.Generator().manual_seed(1))
+    assert isinstance(disc, SimpleDiscriminator)
+    assert disc.head.in_features == 4 * cfg["model"]["base_channels"]
 
 
 def test_registry_follows_the_jax_rules():
     """Test sample_length falls back to train, then 16; shared_batch_mask
-    follows the mask the serving data uses; simple names the queue item."""
+    follows the mask the serving data uses; simple, and any unknown name,
+    build the simple family."""
     base = {"model": {"name": "dk", "in_channels": 1},
             "data": {"train": {"sample_length": 4,
                                "mask": {"type": "stis", "file": "m.txt"}}}}
@@ -177,9 +181,10 @@ def test_registry_follows_the_jax_rules():
     assert build_generator_for_inference(base).length == 16
     base["model"]["name"] = "stdk"
     assert isinstance(build_generator_for_inference(base), STDKGenerator)
-    base["model"]["name"] = "simple"
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        build_generator(base)
+    base["model"].update(name="simple", base_channels=4)
+    assert isinstance(build_generator(base), SimpleGenerator)
+    del base["model"]["name"]
+    assert isinstance(build_generator_for_inference(base), SimpleGenerator)
 
 
 @pytest.mark.parametrize("family", ["dk", "stdk"])

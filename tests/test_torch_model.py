@@ -13,7 +13,8 @@ import torch
 
 from p2igan_tpu.models import P2IGenerator as JaxGenerator
 from p2igan_tpu.models import torch_import as TI
-from p2igan_tpu_torch.models import P2IGenerator, build_generator_for_inference
+from p2igan_tpu_torch.models import (P2IGenerator, build_discriminator,
+                                     build_generator_for_inference)
 from p2igan_tpu_torch.models.convert import state_dict_from_jax
 from p2igan_tpu_torch.ops.doconv import make_d_diag
 from p2igan_tpu_torch.ops.layers import InputBlock
@@ -160,8 +161,13 @@ def test_seeded_init_is_reproducible():
 def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="shared-mask"):
         InputBlock(4, factored=False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_generator_for_inference({"model": {"name": "simple"}})
+    # simple is ported: the registry builds it, by name and as the default
+    for cfg in ({"model": {"name": "simple", "base_channels": 4}},
+                {"model": {"base_channels": 4}}):
+        assert type(build_generator_for_inference(cfg)).__name__ == "SimpleGenerator"
+    with pytest.raises(NotImplementedError, match="disc_branch3d_dtype"):
+        build_discriminator({"model": {"name": "p2igan",
+                                       "disc_branch3d_dtype": "bfloat16"}})
     ckpt = tmp_path / "latest.ckpt"
     ckpt.write_bytes(b"\x80")
     assert resolve_checkpoint(tmp_path) == ckpt

@@ -44,7 +44,13 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
     n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 30, proc.stdout
+    assert n_modules >= 36, proc.stdout
+
+
+@pytest.mark.parametrize("name", ["models/simple.py", "ops/enc0_conv.py",
+                                  "ops/dec2_stencil.py", "ops/convs.py"])
+def test_the_simple_family_is_among_the_scanned_files(name):
+    assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
 
 
 def _violations(path: Path):
