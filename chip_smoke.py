@@ -34,7 +34,31 @@
    steps, then 10 timed steps; checks finite losses, ``latest.ckpt``, a
    resume that continues, and that the run launched every kernel of the
    training path. Prints GAN steps/s with the card's name and power limit.
-6. The dk and stdk families at full width (128x128, T=16, hidden 100,
+6. p2igan on per-sample ``sti`` masks (the shipped eval and GAN configs with
+   ``mask.type`` set to ``sti``; their ``block_sizes: [10]`` gives 169 gauges a
+   mask in 256 gauge slots), where nothing is hoisted and every sample selects
+   from its own gauges:
+   - the per-sample combine (combine_table), its backward (combine_table_bwd)
+     and the dense-field combine (combine_dense) against their plain versions
+     at the training shape (B=12, D=16, G=256, HW=16384), the serving shape
+     (B=8) and the reference default block size 4 (1024 gauges, G=1152): the
+     two forwards bitwise, the backward within 1e-5 x max|plain|;
+   - the batched gauge top-k (12 or 8 masks a launch) against single-mask
+     launches, its plain version and the CPU path, bitwise, with the slot
+     geometry on the device against the host's numpy, bitwise and timed;
+   - ``idw_3d_factored`` on one full-size window, forward and backward,
+     against the CPU path;
+   - the two events served through ``scripts/infer_torch.py`` under the masks
+     the loader draws (launch counts asserted: gauge_topk and combine_table
+     twice an event, combine_table_multi never), and 2 x 16 frames under two
+     masks as one mixed window stream against the CPU path (1e-4 x 255);
+   - the generator's gradients at batch 12 under 12 masks, ``input.*``
+     against the plain versions;
+   - 15 hinge-GAN steps at batch 12 through ``scripts/train_torch.py`` with
+     ``device_decode`` off and on (launch counts asserted: #1, #5, #6 once a
+     step), and a 6-step resume whose last 4 steps are profiled (idle share,
+     the share of #1 + #5 + #6 in the device time).
+7. The dk and stdk families at full width (128x128, T=16, hidden 100,
    K_s=139, K_t=44, the 79-gauge stis mask, seeded weights):
    - the fused MLP tail (mlp_tail_fused, J=128 and J=192) and its backward
      (mlp_tail_bwd, J=192) against their plain versions on the card and a
@@ -52,7 +76,7 @@
      kernels equal to the steps (plus the validation forwards), every
      parameter's last gradient finite and non-zero, and a 6-step resume whose
      last 4 steps run under ``torch.profiler`` (idle share, time by kernel).
-7. The simple family at full width (base 64, T=16, 128x128, seeded weights,
+8. The simple family at full width (base 64, T=16, 128x128, seeded weights,
    BatchNorm statistics away from identity; the shipped p2igan configs with
    ``model`` set to ``{"name": "simple", "in_channels": 1, "base_channels":
    64}``):
@@ -71,7 +95,7 @@
      parameter's last gradient finite and non-zero, running statistics moved,
      peak device memory, then a 6-step resume whose last 4 steps run under
      ``torch.profiler``.
-8. Prints the card, a JSON line of the nine kernels (time, plain version's
+9. Prints the card, a JSON line of the twelve kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time where there is one, launches on the kernel's main path), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed check exits
@@ -97,6 +121,7 @@ import torch
 from p2igan_tpu_torch.config import load_config
 from p2igan_tpu_torch.data import fake, zarrlite
 from p2igan_tpu_torch.data.datamodule import P2IDataModule
+from p2igan_tpu_torch.data.masks import create_mask_np
 from p2igan_tpu_torch.data.stores import store_compressor
 from p2igan_tpu_torch.inference.driver import (SlidingWindowReconstructor,
                                                load_generator, set_precision_policy)
@@ -113,10 +138,13 @@ from p2igan_tpu_torch.ops.dec2_stencil import (conv3d_cout1_sigmoid,
 from p2igan_tpu_torch.ops.doconv import make_d_diag
 from p2igan_tpu_torch.ops.enc0_conv import (enc0_conv3d_leaky,
                                             enc0_conv3d_leaky_reference)
-from p2igan_tpu_torch.ops.idw import factored_prepare_full, gauge_geometry
+from p2igan_tpu_torch.ops.idw import (factored_prepare, factored_prepare_full,
+                                      gauge_geometry, idw_3d_factored)
 from p2igan_tpu_torch.ops.idw_factored_kernel import (
-    combine_table_multi, combine_table_multi_bwd, combine_table_multi_bwd_reference,
-    combine_table_multi_reference, gauge_topk, gauge_topk_reference)
+    combine_dense, combine_dense_reference, combine_table, combine_table_bwd,
+    combine_table_bwd_reference, combine_table_multi, combine_table_multi_bwd,
+    combine_table_multi_bwd_reference, combine_table_multi_reference,
+    combine_table_reference, gauge_topk, gauge_topk_reference)
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
 from p2igan_tpu_torch.ops.wendland import build_phi_space
@@ -126,6 +154,7 @@ REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "p2igan_tpu_torch" / "config"
 CONFIG = CONFIGS / "p2igan_baseline_eval.json"
 TRAIN_CONFIG = CONFIGS / "p2igan_gan_baseline_gauge.json"
+STI_TRAIN_CONFIG = CONFIGS / "p2igan_gan_baseline.json"
 DK_FAMILY = {"dk": (DKGenerator, CONFIGS / "dk_gauge.json"),
              "stdk": (STDKGenerator, CONFIGS / "stdk_gauge.json")}
 SEED = 2024
@@ -134,6 +163,13 @@ LENGTH, BASE, NUM_RES, WINDOW_BATCH, G, K = 16, 64, 4, 8, 128, 4
 EVENTS, EVENT_FRAMES = 2, 64
 TRAIN_BATCH, TRAIN_EVENTS, WARMUP_STEPS, TIMED_STEPS = 12, 5, 5, 10
 HIDDEN, VISIBLE_K = 100, 79
+# sti: one gauge a block. The shipped block size 10 gives 169 gauges a mask and
+# 256 gauge slots; the reference default 4 gives 1024 gauges and 1152 slots
+STI_BLOCK, STI_G, STI_DENSE_BLOCK, STI_DENSE_G = 10, 256, 4, 1152
+# (label, masks a launch, block size, gauge slots) of the sti kernel checks
+STI_SHAPES = (("train", TRAIN_BATCH, STI_BLOCK, STI_G),
+              ("serve", WINDOW_BATCH, STI_BLOCK, STI_G),
+              ("block 4", TRAIN_BATCH, STI_DENSE_BLOCK, STI_DENSE_G))
 # H100 SXM data sheet: device memory rate and the float32 rate outside the
 # tensor cores (the precision policy keeps TF32 off)
 PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
@@ -150,6 +186,13 @@ KERNELS = {
     "combine_table_multi_bwd": (combine_table_multi_bwd,
                                 "p2igan_tpu_torch/csrc/combine_table_multi_bwd.cu",
                                 "p2igan_tpu/ops/pallas/idw_factored_kernel.py:539"),
+    "combine_table": (combine_table, "p2igan_tpu_torch/csrc/combine_table.cu",
+                      "p2igan_tpu/ops/pallas/idw_factored_kernel.py:259"),
+    "combine_table_bwd": (combine_table_bwd,
+                          "p2igan_tpu_torch/csrc/combine_table_bwd.cu",
+                          "p2igan_tpu/ops/pallas/idw_factored_kernel.py:444"),
+    "combine_dense": (combine_dense, "p2igan_tpu_torch/csrc/combine_dense.cu",
+                      "p2igan_tpu/ops/pallas/idw_factored_kernel.py:185"),
     "decode_normalize_mask": (decode_normalize_mask,
                               "p2igan_tpu_torch/csrc/decode_mask.cu",
                               "p2igan_tpu/ops/pallas/decode_mask.py:53"),
@@ -164,8 +207,12 @@ KERNELS = {
                              "p2igan_tpu/ops/pallas/dec2_stencil.py:105"),
 }
 SERVING_KERNELS = ("gauge_topk", "combine_table_multi", "maxpool2_duplicate")
+STI_SERVING_KERNELS = ("gauge_topk", "combine_table", "maxpool2_duplicate")
 # the path whose launch count each kernel reports in the kernels line
-LAUNCH_PATH = {"mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training",
+LAUNCH_PATH = {"combine_table": "p2igan sti training",
+               "combine_table_bwd": "p2igan sti training",
+               "combine_dense": "idw_3d_factored op",
+               "mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training",
                "enc0_conv3d_leaky": "simple serving",
                "conv3d_cout1_sigmoid": "simple serving"}
 SIMPLE_MODEL = {"name": "simple", "in_channels": 1, "base_channels": BASE}
@@ -373,6 +420,223 @@ def check_decode(dev) -> dict:
             **bound(u8.size * 9 + mask.size, u8.size * 2)}
 
 
+# -- the per-sample (sti) factored IDW ----------------------------------------
+
+def sti_masks(dev, batch: int, block: int, seed: int = SEED) -> torch.Tensor:
+    """(batch, H, W) sti masks, one observed pixel a block, as the loaders draw
+    them: a jittered grid, full of integer-offset distance ties."""
+    rng = np.random.default_rng(seed)
+    masks = [create_mask_np((1, H, W, 1), rng, "sti", block_sizes=[block])[0, :, :, 0]
+             for _ in range(batch)]
+    return torch.from_numpy(np.stack(masks)).to(dev)
+
+
+def gauge_geometry_host(mask_xy: torch.Tensor, max_gauges: int):
+    """The slot geometry of one (H, W) mask in numpy on the host, from a mask
+    on the card: a device-to-host copy (a sync), nonzero, idx/(N-1), and the
+    upload. What ``gauge_geometry`` computes on the device is held against it
+    bit for bit, and timed against it."""
+    hw = H * W
+    (obs,) = np.nonzero(mask_xy.detach().cpu().numpy().reshape(-1) > 0)
+    gidx = np.full((max_gauges,), hw, dtype=np.int64)
+    n = min(len(obs), max_gauges)
+    gidx[:n] = obs[:n]
+    safe = np.minimum(gidx, hw - 1)
+    gy = (safe // W).astype(np.float32) / np.float32(H - 1)
+    gx = (safe % W).astype(np.float32) / np.float32(W - 1)
+    pen = np.where(gidx < hw, np.float32(0), np.float32(1e30)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(mask_xy.device) for a in (gx, gy, pen, safe))
+
+
+def check_gauge_topk_batched(dev) -> None:
+    """Kernel #1 on the sti paths: B masks a launch. The slot geometry on the
+    device equals the host's numpy bit for bit; the batched launch equals B
+    single-mask launches, the plain version and the CPU path bit for bit; and
+    one launch is timed against B launches and against the host geometry."""
+    for label, batch, block, slots in STI_SHAPES:
+        masks = sti_masks(dev, batch, block)
+        geo = gauge_geometry(masks, slots)
+        for b in range(batch):
+            host = gauge_geometry_host(masks[b], slots)
+            if not all(torch.equal(d[b], h) for d, h in zip(geo[2:], host)):
+                fail(f"gauge_geometry on the device differs from the host's ({label}, {b})")
+        args = geo[:5]
+        gd2, gsel = gauge_topk(*args, k=K)
+        rd2, rsel = gauge_topk_reference(*args, k=K)
+        singles = [gauge_topk(args[0], args[1], *(a[b] for a in args[2:]), k=K)
+                   for b in range(batch)]
+        torch.cuda.synchronize()
+        if not (torch.equal(gsel, rsel) and bitwise_equal(gd2, rd2)):
+            fail(f"batched gauge_topk differs from its plain version ({label})")
+        if not all(torch.equal(gsel[b], s[1]) and bitwise_equal(gd2[b], s[0])
+                   for b, s in enumerate(singles)):
+            fail(f"batched gauge_topk differs from single-mask launches ({label})")
+        card = factored_prepare_full(masks, slots, k=K)
+        cpu = factored_prepare_full(masks.cpu(), slots, k=K)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+            fail(f"gd2/gsel on the card differ from the CPU path ({label})")
+        n_gauges = int((masks > 0).sum(dim=(1, 2)).max())
+        one_ms = cuda_ms(lambda: gauge_topk(*args, k=K))
+        loop_ms = cuda_ms(lambda: [gauge_topk(args[0], args[1], *(a[b] for a in args[2:]),
+                                              k=K) for b in range(batch)])
+        plain_ms = cuda_ms(lambda: gauge_topk_reference(*args, k=K), reps=3, warmup=1)
+        geo_ms = cuda_ms(lambda: gauge_geometry(masks, slots))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for b in range(batch):
+                gauge_geometry_host(masks[b], slots)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        hw = H * W
+        b_ = bound(4 * (2 * hw + 3 * batch * slots + 2 * K * batch * hw),
+                   batch * hw * slots * (6 + K))
+        print(f"gauge_topk[sti {label}] B={batch} masks, {n_gauges} gauges in G={slots} "
+              f"slots: equal to the plain version, to {batch} single launches and to "
+              f"the CPU path (bitwise); one launch {one_ms:.4f} ms, {batch} launches "
+              f"{loop_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms "
+              f"({b_['bound_by']}); slot geometry on the device {geo_ms:.4f} ms, on the "
+              f"host (copy, numpy, upload; {batch} masks) {host_ms:.4f} ms")
+
+
+def sample_combine_bound(batch: int, slots: int) -> dict:
+    """Forward and backward of the per-sample combine move the same bytes:
+    (B, k, HW) distances and slots, (B, D, G) tables, the (B, D, HW) field.
+    Per (sample, z, pixel): kf*k = 20 candidate distances (8 flops with the
+    sqrt and the weight), k selection rounds over them, 2 k flops of values."""
+    hw, cand = H * W, 5 * K
+    return bound(4 * batch * (2 * K * hw + LENGTH * slots + LENGTH * hw),
+                 batch * LENGTH * hw * (cand * 8 + K * cand + 2 * K))
+
+
+def sti_selection(dev, batch, block, slots):
+    gd2, gsel, _ = factored_prepare_full(sti_masks(dev, batch, block), slots, k=K)
+    return gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous()
+
+
+def check_combine_table(dev) -> dict:
+    """Kernel #5 at the training shape (B=12, G=256), the serving shape (B=8)
+    and the reference default block size (G=1152): bitwise equal to its plain
+    version (all D frames, no pruning). The kernels line reports the first."""
+    gen = torch.Generator().manual_seed(SEED)
+    result = {}
+    for label, batch, block, slots in STI_SHAPES:
+        gd2_t, gsel_t = sti_selection(dev, batch, block, slots)
+        tables = torch.randn((batch, LENGTH, slots), generator=gen).to(dev)
+        out_k = combine_table(gd2_t, gsel_t, tables, K)
+        out_p = combine_table_reference(gd2_t, gsel_t, tables, K)
+        torch.cuda.synchronize()
+        e = float((out_k - out_p).abs().max())
+        if not bitwise_equal(out_k, out_p):
+            fail(f"combine_table not bitwise equal to its plain version ({label}): "
+                 f"max abs err {e}")
+        k_ms = cuda_ms(lambda: combine_table(gd2_t, gsel_t, tables, K))
+        p_ms = cuda_ms(lambda: combine_table_reference(gd2_t, gsel_t, tables, K),
+                       reps=3, warmup=1)
+        b_ = sample_combine_bound(batch, slots)
+        print(f"combine_table[{label}] B={batch} D={LENGTH} HW={H * W} G={slots} k={K}: "
+              f"bitwise equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+        if not result:
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+    return result
+
+
+def check_combine_table_bwd(dev) -> dict:
+    """Kernel #6 at the same three shapes: max abs error <= 1e-5 x max|plain|
+    (shared-memory atomics and per-block partials sum in another order than
+    autograd of the plain version); whether two runs agree bitwise is printed
+    (the atomics take no fixed order)."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    result = {}
+    for label, batch, block, slots in STI_SHAPES:
+        gd2_t, gsel_t = sti_selection(dev, batch, block, slots)
+        g = torch.randn((batch, LENGTH, H * W), generator=gen).to(dev)
+        out_k = combine_table_bwd(gd2_t, gsel_t, g, slots, K)
+        out_p = combine_table_bwd_reference(gd2_t, gsel_t, g, slots, K)
+        again = combine_table_bwd(gd2_t, gsel_t, g, slots, K)
+        torch.cuda.synchronize()
+        e, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
+        if not (out_k.shape == out_p.shape and scale > 0 and e <= 1e-5 * scale):
+            fail(f"combine_table_bwd max abs err {e} > 1e-5 x {scale} ({label})")
+        k_ms = cuda_ms(lambda: combine_table_bwd(gd2_t, gsel_t, g, slots, K))
+        p_ms = cuda_ms(lambda: combine_table_bwd_reference(gd2_t, gsel_t, g, slots, K),
+                       reps=3, warmup=1)
+        b_ = sample_combine_bound(batch, slots)
+        print(f"combine_table_bwd[{label}] B={batch} D={LENGTH} HW={H * W} G={slots} "
+              f"k={K}: max abs err {e:.3e} ({e / scale:.2e} x max|plain| {scale:.3f}), "
+              f"repeats bitwise: {bitwise_equal(out_k, again)}; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+        if not result:
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+    return result
+
+
+def check_combine_dense(dev) -> dict:
+    """Kernel #7: one (16, 128, 128) window, its candidate values gathered from
+    the dense field, under a block-10 and a block-4 sti mask: bitwise equal to
+    its plain version. Bytes: gd2 (k, HW) and cvals (D*k, HW) in, (D, HW) out."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    hw, cand = H * W, 5 * K
+    result = {}
+    for block, slots in ((STI_BLOCK, STI_G), (STI_DENSE_BLOCK, STI_DENSE_G)):
+        mask = sti_masks(dev, 1, block)[0]
+        values = torch.randn((LENGTH, hw), generator=gen).to(dev)
+        gd2, gpix = factored_prepare(mask, slots, k=K)
+        gd2_t = gd2.t().contiguous()
+        cvals_t = values[:, gpix.long()].permute(0, 2, 1).reshape(LENGTH * K, hw).contiguous()
+        out_k = combine_dense(gd2_t, cvals_t, K)
+        out_p = combine_dense_reference(gd2_t, cvals_t, K)
+        torch.cuda.synchronize()
+        e = float((out_k - out_p).abs().max())
+        if not bitwise_equal(out_k, out_p):
+            fail(f"combine_dense not bitwise equal to its plain version (block {block}): "
+                 f"max abs err {e}")
+        k_ms = cuda_ms(lambda: combine_dense(gd2_t, cvals_t, K))
+        p_ms = cuda_ms(lambda: combine_dense_reference(gd2_t, cvals_t, K), reps=5)
+        b_ = bound(4 * hw * (K + LENGTH * K + LENGTH),
+                   LENGTH * hw * (cand * 8 + K * cand + 2 * K))
+        print(f"combine_dense[block {block}] D={LENGTH} HW={hw} k={K}: bitwise equal; "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms "
+              f"({b_['bound_by']})")
+        if not result:
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+    return result
+
+
+def run_idw_3d_factored(dev) -> dict:
+    """The path of kernel #7: ``idw_3d_factored`` (no model calls it, in either
+    package) on one full-size window under a block-10 sti mask, forward and
+    backward. The card's field equals the CPU path's bit for bit, its gradient
+    to the values (autograd of the plain version, on the card) within 1e-5 x
+    max."""
+    mask = sti_masks(dev, 1, STI_BLOCK, seed=SEED + 3)[0]
+    gen = torch.Generator().manual_seed(SEED + 3)
+    values = torch.randn((LENGTH, H, W), generator=gen)
+    cot = torch.randn((LENGTH, H, W), generator=gen)
+    outs = {}
+    for d in ("cpu", dev):
+        field = values.to(d).detach().requires_grad_(True)
+        if d == dev:
+            reset_launches()
+        out = idw_3d_factored(mask.to(d), field, STI_G, k=K)
+        if out.grad_fn is None:
+            fail("idw_3d_factored's output carries no grad_fn")
+        out.backward(cot.to(d))
+        outs[str(d)] = (out.detach().cpu(), field.grad.cpu())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    (o_c, g_c), (o_d, g_d) = outs["cpu"], outs[str(dev)]
+    e_g, scale = float((g_c - g_d).abs().max()), float(g_c.abs().max())
+    if not (bitwise_equal(o_c, o_d) and scale > 0 and e_g <= 1e-5 * scale):
+        fail(f"idw_3d_factored on the card differs from the CPU path: field max abs err "
+             f"{float((o_c - o_d).abs().max())}, gradient {e_g} vs max {scale}")
+    if (launches["gauge_topk"], launches["combine_dense"]) != (1, 1):
+        fail(f"idw_3d_factored launched {launches}")
+    print(f"idw_3d_factored ({LENGTH}, {H}, {W}), G={STI_G}: field bitwise equal to the "
+          f"CPU path, gradient within {e_g / scale:.2e} x max; launches {launches}")
+    return launches
+
+
 def write_serving_tree(tmp: Path) -> Path:
     """Fake test store, gauge mask, seeded full-width .pt and a config."""
     compressor = store_compressor()
@@ -479,39 +743,49 @@ def check_against_cpu(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the generator through the plain versions of the combine and the
+    """Route the generator through the plain versions of the combines and the
     pool (the modules look them up at call time), e.g. on the card."""
-    saved = idw_factored_kernel.combine_table_multi, layers.maxpool2_duplicate
+    saved = (idw_factored_kernel.combine_table_multi, idw_factored_kernel.combine_table,
+             layers.maxpool2_duplicate)
     idw_factored_kernel.combine_table_multi = combine_table_multi_reference
+    idw_factored_kernel.combine_table = combine_table_reference
     layers.maxpool2_duplicate = maxpool2_duplicate_reference
     try:
         yield
     finally:
-        idw_factored_kernel.combine_table_multi, layers.maxpool2_duplicate = saved
+        (idw_factored_kernel.combine_table_multi, idw_factored_kernel.combine_table,
+         layers.maxpool2_duplicate) = saved
 
 
-def check_gradients(dev) -> None:
+def check_gradients(dev, sti: bool = False) -> None:
     """One full-width generator forward and backward at batch 12: the
     autograd Functions must carry the gradient back to ``input.*`` (the
     attention blocks before the combine) and ``Convsin.*`` (reached only
     through the first pool). The ``input.*`` gradients are held against the
     same computation through the plain versions on the card, within 1e-4 x
     max|grad|: cuDNN's backward and the combine backward's reordered sums
-    change the last bits."""
+    change the last bits. ``sti``: every sample under its own block-10 mask,
+    the gauge selection inside the forward (kernels #1, #5, #6); else one
+    shared 79-gauge mask with the selection hoisted (#2, #4)."""
     rng = np.random.default_rng(SEED + 5)
-    flat = np.zeros(H * W, np.float32)
-    flat[rng.choice(H * W, 79, replace=False)] = 1.0
-    masks = torch.from_numpy(np.broadcast_to(flat.reshape(1, 1, H, W, 1),
+    if sti:
+        mask_xy = sti_masks("cpu", TRAIN_BATCH, STI_BLOCK, seed=SEED + 5).numpy()
+    else:
+        flat = np.zeros(H * W, np.float32)
+        flat[rng.choice(H * W, 79, replace=False)] = 1.0
+        mask_xy = flat.reshape(1, H, W)
+    masks = torch.from_numpy(np.broadcast_to(mask_xy[:, None, :, :, None],
                                              (TRAIN_BATCH, LENGTH, H, W, 1)).copy()).to(dev)
     frames = torch.from_numpy(rng.random((TRAIN_BATCH, LENGTH, H, W, 1),
                                          dtype=np.float32)).to(dev)
+    budget = {"idw_max_points": LENGTH * STI_G, "idw_shared_batch_mask": False} if sti else {}
     gen = P2IGenerator(H=H, W=W, length=LENGTH, num_res=NUM_RES, base_channels=BASE,
-                       generator=torch.Generator().manual_seed(SEED), device=dev)
-    prep = gen.prepare_idw(masks[0, 0, :, :, 0])
+                       generator=torch.Generator().manual_seed(SEED), device=dev, **budget)
+    kw = {} if sti else {"idw_prepared": gen.prepare_idw(masks[0, 0, :, :, 0])}
 
     def grads():
         gen.zero_grad(set_to_none=True)
-        preds = gen(frames * masks, masks, idw_prepared=prep)
+        preds = gen(frames * masks, masks, **kw)
         loss, _ = reconstruction_loss(preds, frames, 0.05)
         loss.backward()
         torch.cuda.synchronize()
@@ -521,7 +795,9 @@ def check_gradients(dev) -> None:
     reset_launches()
     got = grads()
     launches = read_launches()
-    for name in ("combine_table_multi", "combine_table_multi_bwd", "maxpool2_duplicate"):
+    required = (("gauge_topk", "combine_table", "combine_table_bwd") if sti
+                else ("combine_table_multi", "combine_table_multi_bwd"))
+    for name in required + ("maxpool2_duplicate",):
         if launches[name] <= 0:
             fail(f"the generator backward launched no {name} kernel")
     for name, g in got.items():
@@ -541,9 +817,41 @@ def check_gradients(dev) -> None:
             worst = max(worst, rel)
             if not rel <= 1e-4:
                 fail(f"{name} gradient differs from the plain path by {rel:.2e} x max")
-    print(f"gradients at batch {TRAIN_BATCH}: all {len(got)} generator parameters "
-          f"finite, input.* and Convsin.* non-zero; input.* vs plain versions on "
-          f"the card: max {worst:.2e} x max|grad|; launches {launches}")
+    print(f"gradients at batch {TRAIN_BATCH} ({'a mask a sample (sti)' if sti else 'shared mask'}): "
+          f"all {len(got)} generator parameters finite, input.* and Convsin.* non-zero; "
+          f"input.* vs plain versions on the card: max {worst:.2e} x max|grad|; "
+          f"launches {launches}")
+
+
+def time_input_block(dev) -> None:
+    """The layer the two mask types differ in, alone, at batch 12: the
+    InputBlock forward on a shared mask with the selection hoisted (stis) and on 12 masks with
+    the selection inside (sti). Device time a forward (CUDA events), and the
+    host time to enqueue one (host clock over 50 forwards, one sync at the
+    end): the second is what the step's launching thread pays."""
+    rng = np.random.default_rng(SEED + 6)
+    x = torch.from_numpy(rng.random((TRAIN_BATCH, LENGTH, H, W), dtype=np.float32)).to(dev)
+    shared_mask = gauge_masks(dev)["random79"].expand(TRAIN_BATCH, LENGTH, H, W)
+    own_masks = sti_masks(dev, TRAIN_BATCH, STI_BLOCK)[:, None].expand(-1, LENGTH, -1, -1)
+    line = []
+    for label, shared, masks in (("stis, hoisted", True, shared_mask),
+                                 ("sti", False, own_masks)):
+        block = layers.InputBlock(LENGTH, max_points=LENGTH * STI_G,
+                                  shared_batch_mask=shared, frames=LENGTH, device=dev)
+        prep = None
+        if shared:
+            prep = factored_prepare_full(masks[0, 0], STI_G, k=K)
+        with torch.no_grad():
+            run = lambda: block(x * masks, masks, prepared=prep)  # noqa: E731
+            dev_ms = cuda_ms(run)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                run()
+            host_ms = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+        line.append(f"{label}: device {dev_ms:.4f} ms, host enqueue {host_ms:.4f} ms")
+    print(f"InputBlock forward at batch {TRAIN_BATCH} (G={STI_G}): " + "; ".join(line))
 
 
 def write_train_tree(tmp: Path, config: Path = TRAIN_CONFIG) -> dict:
@@ -610,15 +918,113 @@ def train(tmp: Path, card: str, dev) -> dict:
               f"{losses[1]:.5f}, dis {losses[2]:.4f}; launches {launches}")
         if not decode:
             # the run stopped inside epoch 1 and saved it as done; the resume
-            # takes two steps of epoch 2
-            cfg["train"].update(iterations=s1 + 2, max_epochs=2)
+            # takes six steps of epoch 2, the last four under the profiler (the
+            # stis idle share the sti runs below are read against)
+            prof = tmp / "profile_p2igan_stis"
+            cfg["train"].update(iterations=s1 + 6, max_epochs=2, profile_dir=str(prof),
+                                profile_start_step=s1 + 2, profile_steps=4)
             cfg_path.write_text(json.dumps(cfg))
             resumed = train_torch.main(train_torch.parse_args(
                 argv + ["--resume", str(latest)]))
-            if resumed.global_step != s1 + 2 or not np.isfinite(resumed.last_rec_loss):
+            if resumed.global_step != s1 + 6 or not np.isfinite(resumed.last_rec_loss):
                 fail(f"resume ended at step {resumed.global_step}")
-            print(f"resume from latest.ckpt continued to step {resumed.global_step}")
+            print(f"resume from latest.ckpt continued to step {resumed.global_step}; "
+                  + profile_report(prof))
     return launches
+
+
+# -- p2igan on per-sample sti masks --------------------------------------------
+
+def sti_config(cfg: dict) -> dict:
+    """A shipped stis config with ``mask.type`` set to ``sti`` in both splits;
+    its ``block_sizes: [10]`` then applies: 169 gauges a mask, 256 slots."""
+    for split in ("train", "test"):
+        mask = cfg["data"][split]["mask"]
+        mask["type"] = "sti"
+        if mask["block_sizes"] != [STI_BLOCK]:
+            fail(f"the shipped config's block_sizes are {mask['block_sizes']}")
+    return cfg
+
+
+def serve_sti(tmp: Path, card: str, dev) -> dict:
+    """The two 64-frame events through scripts/infer_torch.py, each under the
+    sti mask its loader draws: nothing is hoisted, so every generator call (2
+    an event at window batch 8) runs the gauge top-k for its 8 windows (#1,
+    one launch) and the per-sample combine (#5); the shared-mask combine (#2)
+    never runs. Then 2 x 16 frames under two different masks as ONE window
+    stream (window batch 3, so a batch mixes events), card vs CPU path."""
+    cfg = sti_config(load_config(tmp / "eval.json"))
+    cfg["save_dir"] = str(tmp / "weights_sti")
+    cfg_path = tmp / "eval_sti.json"
+    cfg_path.write_text(json.dumps(cfg))
+    checkpoint = tmp / "P2IGAN_seeded.pt"
+    launches, events_per_s = serve(tmp, cfg_path, checkpoint, "p2igan_sti",
+                                   required=STI_SERVING_KERNELS)
+    calls = EVENTS * (-(-(EVENT_FRAMES // 4) // WINDOW_BATCH))
+    want = {**dict.fromkeys(launches, 0), "gauge_topk": calls, "combine_table": calls,
+            "maxpool2_duplicate": 3 * calls}
+    if launches != want:
+        fail(f"sti serving launched {launches}, expected {want}")
+    print(f"p2igan sti serving: {events_per_s:.4f} events/s on {card}; a 64-frame "
+          f"event launches gauge_topk x{calls // EVENTS}, combine_table x{calls // EVENTS}")
+
+    store = zarrlite.open(tmp / "test_events.zarr", mode="r")
+    evs = np.stack([store[f"event_{i + 1:02d}"][:LENGTH] for i in range(EVENTS)])
+    evs = evs[..., None].astype(np.float32) / 255.0
+    rng = np.random.default_rng(SEED + 21)
+    masks = np.stack([create_mask_np(ev.shape, rng, "sti", block_sizes=[STI_BLOCK])
+                      for ev in evs])
+    if np.array_equal(masks[0], masks[1]):
+        fail("the two sti masks are equal")
+    outs = {}
+    for d in ("cpu", dev):
+        gen = load_generator(cfg, checkpoint, torch.device(d))
+        if gen.idw_shared_batch_mask or not gen.idw_factored:
+            fail("the sti config built a shared-mask generator")
+        recon = SlidingWindowReconstructor(gen, stride=16, overlap=12, window_batch=3)
+        outs[str(d)] = recon.batch(evs * masks, masks)
+    err = float(np.abs(outs["cpu"] - outs[str(dev)]).max())
+    print(f"p2igan_sti: 2 x 16 frames under two masks in one window stream, card vs "
+          f"plain CPU path: max abs err {err:.4e} (x255 scale), max value "
+          f"{outs['cpu'].max():.3f}")
+    if not (np.isfinite(outs[str(dev)]).all() and err <= 1e-4 * 255.0):
+        fail(f"p2igan_sti: card reconstruction differs from the CPU path by {err}")
+    if not outs["cpu"].max() > 1.0:
+        fail(f"p2igan_sti: the reconstruction is degenerate (max {outs['cpu'].max()})")
+    return launches
+
+
+STI_KERNEL_ROWS = ("gauge_topk_kernel", "combine_table_kernel",
+                   "combine_table_bwd_partial_kernel", "sum_partials_kernel")
+
+
+def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
+    """The hinge GAN on p2igan_gan_baseline.json with sti masks (batch 12, a
+    mask a sample) through scripts/train_torch.py: 15 steps, every one with
+    its own gauge top-k (#1, one launch for the 12 masks), combine (#5) and
+    combine backward (#6); the validation forwards add #1 and #5. With
+    ``decode`` the raw pipeline ships uint8 frames and one mask frame a sample
+    through #11. Then the profiled resume: idle share and the four kernels'
+    share of the device time."""
+    cfg = sti_config(write_train_tree(tmp, STI_TRAIN_CONFIG))
+    cfg["data"]["train"]["device_decode"] = decode
+    label = "p2igan sti GAN" + (" device_decode" if decode else "")
+    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {
+        "gauge_topk": steps + val, "combine_table": steps + val,
+        "combine_table_bwd": steps, "maxpool2_duplicate": 3 * (steps + val),
+        **({"decode_normalize_mask": None} if decode else {})})
+    summary = json.loads((tmp / f"profile_{label.replace(' ', '_')}" / "summary.json")
+                         .read_text())
+    total = sum(summary["kernel_ms"].values())
+    ours = {row: sum(ms for key, ms in summary["kernel_ms"].items() if f"{row}(" in key)
+            for row in STI_KERNEL_ROWS}
+    if total <= 0 or any(ms <= 0 for ms in ours.values()):
+        fail(f"the profile shows no device time for {ours}")
+    print(f"{label}: of {total:.2f} ms of kernel time in the {summary['steps']} profiled "
+          f"steps, #1 + #5 + #6 take {sum(ours.values()):.3f} ms = "
+          f"{sum(ours.values()) / total:.4f}: "
+          + ", ".join(f"{row} {ms:.3f}" for row, ms in ours.items()))
+    return launches, sps
 
 
 # -- the dk and stdk families -------------------------------------------------
@@ -758,15 +1164,15 @@ def write_dk_serving(tmp: Path, model: str) -> tuple:
     return cfg_path, checkpoint
 
 
-def host_loader_rate(tmp: Path) -> float:
+def host_loader_rate(tmp: Path, cfg: dict, label: str) -> float:
     """Windows/s of the host input pipeline alone (zarr window read, crop,
     /255, mask, collate; float mode, the config's 4 loader threads) on the
-    training store: what the steps below can be fed with."""
-    loader = P2IDataModule(write_train_tree(tmp, DK_FAMILY["dk"][1])).train_dataloader()
+    training store: what the steps can be fed with."""
+    loader = P2IDataModule(cfg).train_dataloader()
     t0 = time.perf_counter()
     windows = sum(batch[0].shape[0] for batch in loader)
     rate = windows / (time.perf_counter() - t0)
-    print(f"host input pipeline alone: {windows} windows of {LENGTH}x{H}x{W} in "
+    print(f"host input pipeline alone ({label}): {windows} windows of {LENGTH}x{H}x{W} in "
           f"batches of {TRAIN_BATCH}: {rate:.1f} windows/s "
           f"({rate / TRAIN_BATCH:.2f} batches/s)")
     return rate
@@ -776,7 +1182,7 @@ def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> 
     """One family through scripts/train_torch.py from the config ``cfg`` (a
     shipped one pointed at the fake tree): 5 warm-up + 10 timed steps at batch
     12; ``expected(steps, val_batches)`` gives the kernel launches the run
-    must show, every other kernel none. Every parameter of the generator (and
+    must show (None: at least one), every other kernel none. Every parameter of the generator (and
     of the critic under ``use_gan``) ends with a finite non-zero gradient, and
     every BatchNorm running statistic has moved. Then a resume (which must
     restore every weight and buffer) for 6 more steps, the last 4 under the
@@ -805,6 +1211,8 @@ def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> 
     if (trainer.discriminator is not None) != use_gan:
         fail(f"{label}: discriminator {trainer.discriminator}")
     want = {**dict.fromkeys(launches, 0), **expected(steps, len(trainer.val_loader))}
+    # None: launched, but how often is not fixed (the prefetch thread runs ahead)
+    want = {k: (launches[k] or None) if v is None else v for k, v in want.items()}
     if launches != want:
         fail(f"{label} training launched {launches}, expected {want}")
     modules = [trainer.generator] + ([trainer.discriminator] if use_gan else [])
@@ -815,6 +1223,8 @@ def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> 
             # the critic's head.bias may be exactly zero: while both hinges are
             # active for every sample its real and fake halves cancel
             may_be_zero = module is trainer.discriminator and name == "head.bias"
+            if module is trainer.discriminator and name == "alpha3d":
+                continue  # the P2I critic never reads it (nor does the reference)
             if prm.grad is None or not bool(torch.isfinite(prm.grad).all()) \
                     or (float(prm.grad.abs().max()) == 0.0 and not may_be_zero):
                 fail(f"{label} parameter {name} has no finite non-zero gradient")
@@ -1159,13 +1569,19 @@ def main() -> int:
                "maxpool2_duplicate": check_pool_dup(dev),
                "combine_table_multi_bwd": check_combine_bwd(masks),
                "decode_normalize_mask": check_decode(dev),
+               "combine_table": check_combine_table(dev),
+               "combine_table_bwd": check_combine_table_bwd(dev),
+               "combine_dense": check_combine_dense(dev),
                "mlp_tail_fused": check_mlp_tail(dev),
                "mlp_tail_bwd": check_mlp_tail_bwd(dev),
                "enc0_conv3d_leaky": check_enc0(dev),
                "conv3d_cout1_sigmoid": check_dec2(dev)}
+    check_gauge_topk_batched(dev)
+    time_input_block(dev)
     time_conv_layouts(dev)
 
-    paths = {}  # launches of every kernel, per path driven
+    # launches of every kernel, per path driven
+    paths = {"idw_3d_factored op": run_idw_3d_factored(dev)}
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         os.environ["P2IGAN_FORCE_FILE_TRACKER"] = "1"
@@ -1179,7 +1595,15 @@ def main() -> int:
         print(f"p2igan serving: {events_per_s:.4f} events/s on {card}")
         check_gradients(dev)
         paths["p2igan training"] = train(tmp, card, dev)
-        host_loader_rate(tmp)
+        paths["p2igan sti serving"] = serve_sti(tmp, card, dev)
+        check_gradients(dev, sti=True)
+        host_loader_rate(tmp, sti_config(write_train_tree(tmp, STI_TRAIN_CONFIG)),
+                         "sti, a mask drawn per window")
+        for decode in (False, True):
+            label = "p2igan sti training" + (" device_decode" if decode else "")
+            paths[label], sps = train_sti(tmp, card, dev, decode)
+            print(f"{label}: {sps:.4f} GAN steps/s on {card}")
+        host_loader_rate(tmp, write_train_tree(tmp, DK_FAMILY["dk"][1]), "stis gauge file")
         for model in DK_FAMILY:
             cfg_path, checkpoint = write_dk_serving(tmp, model)
             paths[f"{model} serving"], events_per_s = serve(

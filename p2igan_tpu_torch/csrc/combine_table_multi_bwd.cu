@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 
 #include "idw_select.cuh"
+#include "sum_partials.cuh"
 
 namespace {
 
@@ -89,19 +90,6 @@ __global__ void combine_table_multi_bwd_partial_kernel(
   for (int i = threadIdx.x; i < tile; i += blockDim.x) out[i] = s_acc[i];
 }
 
-// d_tables[i] = sum over pixel blocks b, in order, of parts[b][i].
-__global__ void sum_partials_kernel(const float* __restrict__ parts,
-                                    float* __restrict__ out, int nblk,
-                                    int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float acc = 0.0f;
-  for (int b = 0; b < nblk; ++b) {
-    acc = __fadd_rn(acc, parts[static_cast<size_t>(b) * total + i]);
-  }
-  out[i] = acc;
-}
-
 }  // namespace
 
 // parts: scratch of nblk * N * D * G floats, nblk = ceil(HW / 128) (the
@@ -130,6 +118,6 @@ extern "C" int p2i_combine_table_multi_bwd(const float* gd2, const int* gsel,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int total = N * D * G;
-  sum_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(parts, out, nblk, total);
+  p2i::sum_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(parts, out, nblk, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,8 @@
 //
 // Bound on the H100: neither bytes (20 B in, 32 B out per pixel at k=4) nor
 // FLOPs (k*G distance evaluations per pixel, ~8.4 M at 128x128 and G=128);
-// the kernel runs once per event mask, so launch latency dominates. One thread
+// the kernel runs once per event mask (stis) or once per window batch and
+// train step for all its masks (sti), so launch latency dominates. One thread
 // per pixel with the G gauge coordinates in shared memory keeps it to one pass
 // over global memory. The taken slots live in registers (k <= kMaxK) and a taken
 // slot is re-evaluated as 1e30, which is the literal replacement rule without an
@@ -19,6 +20,11 @@
 // Rounding: d2 is computed with explicit round-to-nearest intrinsics (no FMA
 // contraction), in the order ((dx*dx) + (dy*dy)) + penalty of the plain PyTorch
 // version, so gd2 is bitwise equal to it and boundary ties resolve identically.
+//
+// Batch: masks that the samples of a batch do not share (sti) need one
+// selection a sample. grid.y walks B masks (gx, gy, pen are (B, G), gd2 and
+// gsel (B, k, HW)) in one launch; the pixel coordinates are common. B = 1 is
+// the single-mask call, with the same arithmetic.
 
 #include <cuda_runtime.h>
 
@@ -36,6 +42,12 @@ __global__ void gauge_topk_kernel(const float* __restrict__ qx,
                                   int* __restrict__ gsel,
                                   int HW, int G, int k) {
   extern __shared__ float smem[];
+  const size_t b = blockIdx.y;
+  gx += b * G;
+  gy += b * G;
+  pen += b * G;
+  gd2 += b * k * HW;
+  gsel += b * k * HW;
   float* sx = smem;
   float* sy = smem + G;
   float* sp = smem + 2 * G;
@@ -82,9 +94,10 @@ __global__ void gauge_topk_kernel(const float* __restrict__ qx,
 
 extern "C" int p2i_gauge_topk(const float* qx, const float* qy, const float* gx,
                               const float* gy, const float* pen, float* gd2,
-                              int* gsel, int HW, int G, int k, void* stream) {
+                              int* gsel, int B, int HW, int G, int k,
+                              void* stream) {
   const int threads = 128;
-  const int blocks = (HW + threads - 1) / threads;
+  const dim3 blocks((HW + threads - 1) / threads, B);
   const size_t smem = 3 * static_cast<size_t>(G) * sizeof(float);
   gauge_topk_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       qx, qy, gx, gy, pen, gd2, gsel, HW, G, k);

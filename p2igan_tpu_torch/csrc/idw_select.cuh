@@ -1,7 +1,9 @@
 // The candidate selection of the factored IDW, shared by the multi-window
-// combine (combine_table_multi.cu) and its backward (combine_table_multi_bwd.cu)
-// so the tie-sensitive arithmetic exists exactly once, as _selection_weights
-// does in p2igan_tpu/ops/pallas/idw_factored_kernel.py.
+// combine (combine_table_multi.cu), the per-sample combine (combine_table.cu),
+// their backwards (combine_table_multi_bwd.cu, combine_table_bwd.cu) and the
+// dense-field combine (combine_dense.cu), so the tie-sensitive arithmetic
+// exists exactly once, as _selection_weights and _accumulate_values do in
+// p2igan_tpu/ops/pallas/idw_factored_kernel.py.
 //
 // For query frame z and pixel p the candidates are (frame sel[z][fi], gauge slot
 // s): fi < kf pruned frames (ascending, from the host's _frame_selection) times

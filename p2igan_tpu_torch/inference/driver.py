@@ -79,10 +79,12 @@ class SlidingWindowReconstructor:
 
     def _check_gauge_budget(self, masks: np.ndarray) -> None:
         """Fail loudly when any event/frame mask holds more gauges than the
-        factored IDW's static slot budget (the selection would drop some)."""
-        if not self._supports_prepared_idw():
-            return
+        factored IDW's static slot budget (the selection would drop some):
+        the shared-mask generator's hoisted selection and the per-sample
+        generator's in-forward one alike."""
         gen = self.generator
+        if not getattr(gen, "idw_factored", False):
+            return
         budget = InputBlock.gauge_budget(gen.idw_max_points, gen.length)
         mask_xy = np.asarray(masks)[..., 0]
         n_obs = int((mask_xy > 0).reshape(-1, *mask_xy.shape[-2:])
@@ -96,8 +98,10 @@ class SlidingWindowReconstructor:
 
     def _supports_prepared_idw(self) -> bool:
         """True when the generator's IDW gauge selection is a constant of the
-        event mask (the factored shared-mask path of p2igan) and is hoisted
-        out of the window loop; dk, stdk and simple have no IDW."""
+        event mask (the factored shared-mask path of p2igan, stis) and is
+        hoisted out of the window loop. A per-sample (sti) generator hoists
+        nothing: every window computes its own selection, so a window batch
+        may mix events. dk, stdk and simple have no IDW."""
         gen = self.generator
         return bool(getattr(gen, "idw_factored", False)
                     and getattr(gen, "idw_shared_batch_mask", False))
@@ -164,7 +168,8 @@ class SlidingWindowReconstructor:
         """Reconstruct equal-length events (E, T, H, W, C) as one flattened
         window stream. With the hoisted IDW the stream shares ONE gauge
         selection, so events with different masks are then reconstructed one
-        by one instead."""
+        by one instead; a per-sample (sti) generator takes them as one stream
+        whatever their masks."""
         self._check_gauge_budget(masks)
         if self._supports_prepared_idw() and not self._masks_shared(masks):
             return np.stack([self(masked[e], masks[e])

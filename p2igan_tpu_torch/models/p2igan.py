@@ -2,7 +2,8 @@
 (B, T, H, W, C) at the API).
 
 Counterpart of ``p2igan_tpu/models/p2igan.py`` (reference
-``p2igan_bench/models/p2igan.py:72-173``). The generator, on the stis path:
+``p2igan_bench/models/p2igan.py:72-173``). The generator, on frame-constant
+masks (stis: one mask for the batch; sti: one per sample):
 
   flatten T into channels -> InputBlock IDW densification -> grouped 3x3
   DO-conv + repeat-interleave(4) skip -> 3x DownsampleDuplicateChannels pyramid

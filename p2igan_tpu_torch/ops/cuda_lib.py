@@ -41,7 +41,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "p2i_gauge_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "p2i_gauge_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2i_combine_table": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                          _F, _I, _P],
+    "p2i_combine_table_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _F, _I, _I, _I, _P],
+    "p2i_combine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "p2i_combine_table_multi": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _I, _P],
     "p2i_combine_table_multi_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -92,27 +92,30 @@ class AttentionBlock(nn.Module):
 
 class InputBlock(nn.Module):
     """Temporal attention + IDW k-NN densification (reference layer.py:307-361)
-    on the factored shared-mask path: every sample shares one frame-constant
-    spatial mask (stis gauge files, sliding windows of one event).
+    on the factored path: masks that are constant across frames (sti, stis).
 
     Gauge values are gathered first, so the attention runs on (B, G, D)
-    instead of every pixel, and the gauge selection is computed once per batch
-    (or hoisted by the caller, ``prepared``). x/mask: (B, D, H, W) with
-    D = C*T; returns the densified (B, D, H, W) field."""
+    instead of every pixel. With ``shared_batch_mask`` every sample shares one
+    spatial mask (stis gauge files, sliding windows of one event): the gauge
+    selection is computed once per batch, or hoisted by the caller
+    (``prepared``). Without it (sti: a mask per sample) every sample selects
+    from its own gauges, every forward. x/mask: (B, D, H, W) with D = C*T;
+    returns the densified (B, D, H, W) field."""
 
     def __init__(self, channels: int, depth: int = 2, k: int = 4,
                  rho: float = 2.0, tau: float = 0.05, max_points: int = 2048,
                  factored: bool = True, shared_batch_mask: bool = True,
                  frames: Optional[int] = None, device=None):
         super().__init__()
-        if not (factored and shared_batch_mask):
+        if not factored:
             raise NotImplementedError(
-                "InputBlock: only the factored shared-mask IDW (stis gauge "
-                "masks) is ported; per-sample and non-frame-constant masks "
-                f"are not (factored={factored}, "
-                f"shared_batch_mask={shared_batch_mask})")
+                "InputBlock: the generic IDW for masks that vary per frame "
+                "(stin, fi, nowcasting: extract_points + idw_3d_knn) is not "
+                "ported; only the factored IDW of frame-constant masks is "
+                "(sti per sample, stis shared)")
         self.k, self.rho, self.tau = k, rho, tau
         self.max_points = max_points
+        self.shared_batch_mask = shared_batch_mask
         self.frames = frames
         self.layers = nn.ModuleList(AttentionBlock(channels, device=device)
                                     for _ in range(depth))
@@ -124,19 +127,36 @@ class InputBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 prepared=None) -> torch.Tensor:
-        from .idw import factored_apply_gauges_batch, factored_prepare_full
+        from .idw import (factored_apply_gauges, factored_apply_gauges_batch,
+                          factored_prepare_full)
 
         B, D, H, W = x.shape
-        if prepared is None:
-            max_gauges = self.gauge_budget(self.max_points, self.frames or D)
-            prepared = factored_prepare_full(mask[0, 0], max_gauges, k=self.k)
-        gd2, gsel, gauge_pix = prepared
-        h = x.reshape(B, D, H * W)[:, :, gauge_pix].transpose(1, 2)  # (B, G, D)
+        if prepared is not None and not self.shared_batch_mask:
+            # only the shared-mask path can consume a hoisted gauge selection;
+            # dropping it silently would hide a table built for another mask
+            raise ValueError(
+                "InputBlock got `prepared` but shared_batch_mask is not set: "
+                "a per-sample mask computes its own gauge selection")
+        max_gauges = self.gauge_budget(self.max_points, self.frames or D)
+        x_pix = x.reshape(B, D, H * W)
+        if self.shared_batch_mask:
+            if prepared is None:
+                prepared = factored_prepare_full(mask[0, 0], max_gauges, k=self.k)
+            gd2, gsel, gauge_pix = prepared
+            gvals = x_pix[:, :, gauge_pix]                           # (B, D, G)
+        else:
+            gd2, gsel, gauge_pix = factored_prepare_full(mask[:, 0], max_gauges,
+                                                         k=self.k)
+            gvals = torch.gather(x_pix, 2,
+                                 gauge_pix[:, None, :].expand(B, D, max_gauges))
+        h = gvals.transpose(1, 2)                                    # (B, G, D)
         for layer in self.layers:
             h = layer(h)
         vals_g = h.transpose(1, 2).to(torch.float32)                 # (B, D, G)
-        return factored_apply_gauges_batch(gd2, gsel, vals_g, (H, W), k=self.k,
-                                           rho=self.rho, tau=self.tau)
+        apply = (factored_apply_gauges_batch if self.shared_batch_mask
+                 else factored_apply_gauges)
+        return apply(gd2, gsel, vals_g, (H, W), k=self.k, rho=self.rho,
+                     tau=self.tau)
 
 
 class UPPos(nn.Module):

@@ -409,13 +409,20 @@ class Trainer:
                                           row_limit=40)
         (out / "key_averages.txt").write_text(table)
         busy = device_busy_us(prof)
+        # device time by kernel name, so a reader can sum what a set of
+        # kernels costs (the table above is cut to 40 rows)
+        kernel_ms = {r.key: r.self_device_time_total / 1e3
+                     for r in prof.key_averages()
+                     if r.device_type == torch.autograd.DeviceType.CUDA}
         summary = {"steps": self.profile_steps, "wall_ms": wall_us / 1e3,
                    "device_busy_ms": busy / 1e3,
                    "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
+                   "kernel_ms": kernel_ms,
                    "device": (torch.cuda.get_device_name(self.device)
                               if self.device.type == "cuda" else "cpu")}
         (out / "summary.json").write_text(json.dumps(summary, indent=2))
-        logging.info("Profiler window written to %s: %s", out, summary)
+        logging.info("Profiler window written to %s: %s", out,
+                     {k: v for k, v in summary.items() if k != "kernel_ms"})
 
     # -- checkpoints -------------------------------------------------------
     @staticmethod

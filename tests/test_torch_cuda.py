@@ -179,6 +179,176 @@ def test_gradients_through_both_functions(dev):
     assert torch.equal(xa.grad, xb.grad)
 
 
+# -- the per-sample (sti) factored IDW: batched #1, #5, #6, #7 ------------------
+
+def _sti_masks(rng, B, H, W, bs):
+    """B jittered grids (one gauge a block) plus a 2-gauge and an empty mask."""
+    from p2igan_tpu_torch.data.masks import create_mask_np
+
+    ms = [create_mask_np((1, H, W, 1), rng, "sti", block_sizes=[bs])[0, :, :, 0]
+          for _ in range(B - 2)]
+    return np.stack(ms + [_mask("2", H, W, rng), _mask("empty", H, W, rng)])
+
+
+@pytest.mark.parametrize("H,W,bs,G,k", [(32, 32, 4, 128, 4), (40, 24, 2, 512, 4),
+                                        (20, 13, 4, 128, 3)])
+def test_batched_gauge_topk_equals_single_masks_and_cpu(dev, H, W, bs, G, k):
+    """One launch for B masks: bitwise what B single-mask launches give, what
+    the plain version gives, and what the CPU path gives (gd2, gsel and the
+    slot pixels), so the card breaks every tie as the CPU does."""
+    masks = torch.from_numpy(_sti_masks(np.random.default_rng(0), 5, H, W, bs))
+    before = K.gauge_topk.launches
+    got = factored_prepare_full(masks.to(dev), G, k=k)
+    assert K.gauge_topk.launches == before + 1
+    cpu = factored_prepare_full(masks, G, k=k)
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+    for i in range(masks.shape[0]):
+        one = factored_prepare_full(masks[i].to(dev), G, k=k)
+        for a, b in zip(got, one):
+            assert torch.equal(a[i], b)
+    args = gauge_geometry(masks.to(dev), G)[:5]
+    gd2, gsel = K.gauge_topk(*args, k=k)
+    rd2, rsel = K.gauge_topk_reference(*args, k=k)
+    assert torch.equal(gsel, rsel)
+    assert torch.equal(gd2.view(torch.int32), rd2.view(torch.int32))
+
+
+@pytest.mark.parametrize("D,G,k", [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (1, 128, 4),
+                                   (16, 128, 3)])
+def test_combine_table_kernel_bitwise(dev, D, G, k):
+    """Kernel #5 against its plain version (all D frames, no pruning) and
+    against the CPU path: bitwise, the same selection and per-round sums."""
+    rng = np.random.default_rng(1)
+    bs = 1 if G == 1152 else 4   # block 1: every pixel a gauge, 960 of them
+    masks = torch.from_numpy(_sti_masks(rng, 4, 40, 24, bs))
+    tables = torch.from_numpy(rng.normal(size=(4, D, G)).astype(np.float32))
+    outs = {}
+    for d in ("cpu", dev):
+        gd2, gsel, _ = factored_prepare_full(masks.to(d), G, k=k)
+        args = (gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous(),
+                tables.to(d), k)
+        before = K.combine_table.launches
+        outs[str(d)] = K.combine_table(*args)
+        assert K.combine_table.launches == before + (d != "cpu")
+    want = K.combine_table_reference(*args)
+    got = outs[str(dev)]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+    assert torch.equal(got.cpu(), outs["cpu"])
+    assert float(got[-1].abs().max()) == 0.0  # the empty mask
+
+
+@pytest.mark.parametrize("D,G,k", [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (16, 128, 3)])
+def test_combine_table_bwd_kernel(dev, D, G, k):
+    """Kernel #6 against its plain version (autograd of the unpruned plain
+    combine): max abs error <= 1e-5 x max|plain| (shared-memory atomics, then
+    per-block partials: another order of the sums). Through autograd the
+    output carries a grad_fn and the table receives that gradient."""
+    rng = np.random.default_rng(5)
+    bs = 1 if G == 1152 else 4
+    masks = torch.from_numpy(_sti_masks(rng, 4, 40, 24, bs)).to(dev)
+    gd2, gsel, _ = factored_prepare_full(masks, G, k=k)
+    gd2_t, gsel_t = gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous()
+    g = torch.from_numpy(rng.normal(size=(4, D, 40 * 24)).astype(np.float32)).to(dev)
+    before = K.combine_table_bwd.launches
+    got = K.combine_table_bwd(gd2_t, gsel_t, g, G, k)
+    want = K.combine_table_bwd_reference(gd2_t, gsel_t, g, G, k)
+    assert K.combine_table_bwd.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    tables = torch.randn(4, D, G, device=dev, requires_grad=True)
+    out = K.combine_table(gd2_t, gsel_t, tables, k)
+    assert type(out.grad_fn).__name__ == "_CombineTableBackward"
+    out.backward(g)
+    assert float((tables.grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError, match="shared memory"):
+        K.combine_table_bwd(gd2_t, gsel_t, g, 100000, k)
+
+
+@pytest.mark.parametrize("kind", ["79", "grid", "2", "empty"])
+@pytest.mark.parametrize("D,k", [(16, 4), (4, 4), (1, 4), (16, 3)])
+def test_combine_dense_kernel_bitwise(dev, kind, D, k):
+    """Kernel #7 (through idw_3d_factored) against its plain version and the
+    CPU path: bitwise; its gradient (autograd of the plain version on the
+    card) reaches the field and equals the CPU path's within 1e-5 x max."""
+    from p2igan_tpu_torch.ops.idw import factored_prepare, idw_3d_factored
+
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy(_mask(kind, 24, 40, rng))
+    values = torch.from_numpy(rng.normal(size=(D, 24, 40)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(D, 24, 40)).astype(np.float32))
+    outs, grads = {}, {}
+    for d in ("cpu", dev):
+        field = values.to(d).detach().requires_grad_(True)
+        before = K.combine_dense.launches
+        out = idw_3d_factored(mask.to(d), field, 128, k=k)
+        assert K.combine_dense.launches == before + (d != "cpu")
+        assert type(out.grad_fn).__name__ != "NoneType"
+        out.backward(cot.to(d))
+        outs[str(d)], grads[str(d)] = out.detach().cpu(), field.grad.cpu()
+    assert torch.equal(outs["cpu"], outs[str(dev)])
+    scale = max(float(grads["cpu"].abs().max()), 1e-30)
+    assert float((grads["cpu"] - grads[str(dev)]).abs().max()) <= 1e-5 * scale
+    gd2, gpix = factored_prepare(mask.to(dev), 128, k=k)
+    cvals_t = values.to(dev).reshape(D, -1)[:, gpix.long()].permute(0, 2, 1) \
+        .reshape(D * k, -1).contiguous()
+    gd2_t = gd2.t().contiguous()
+    got = K.combine_dense(gd2_t, cvals_t, k)
+    want = K.combine_dense_reference(gd2_t, cvals_t, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_sti_wrappers_validate(dev):
+    gd2 = torch.zeros(2, 4, 64, device=dev)
+    gsel = torch.zeros(2, 4, 64, device=dev, dtype=torch.int32)
+    tables = torch.zeros(2, 16, 128, device=dev)
+    with pytest.raises(ValueError):
+        K.combine_table(gd2[:1], gsel, tables, 4)           # batch mismatch
+    with pytest.raises(TypeError):
+        K.combine_table(gd2, gsel.float(), tables, 4)
+    with pytest.raises(ValueError):
+        K.combine_table(gd2.transpose(1, 2), gsel, tables, 4)  # not contiguous
+    with pytest.raises(ValueError):
+        K.combine_table(gd2, gsel.cpu(), tables, 4)          # mixed devices
+    with pytest.raises(ValueError):
+        K.combine_dense(gd2[0], torch.zeros(63, 64, device=dev), 4)  # D*k rows
+    with pytest.raises(ValueError):
+        K.combine_table_bwd(gd2, gsel, torch.zeros(2, 16, 32, device=dev), 128, 4)
+
+
+def test_sti_generator_gradients_on_the_card(dev):
+    """A small per-sample generator forward and backward on the card: every
+    parameter gets a gradient (the combine's Function carries it back to the
+    attention blocks) and input.* match the CPU path within 1e-4 x max."""
+    from p2igan_tpu_torch.models import P2IGenerator
+
+    rng = np.random.default_rng(8)
+    masks = np.broadcast_to(_sti_masks(rng, 4, 32, 32, 4)[:, None, :, :, None],
+                            (4, 4, 32, 32, 1)).copy()
+    frames = rng.random((4, 4, 32, 32, 1)).astype(np.float32)
+    grads = {}
+    for d in ("cpu", dev):
+        gen = P2IGenerator(H=32, W=32, length=4, num_res=1, base_channels=16,
+                           idw_max_points=512, idw_shared_batch_mask=False,
+                           generator=torch.Generator().manual_seed(0), device=d)
+        m = torch.from_numpy(masks).to(d)
+        f = torch.from_numpy(frames).to(d)
+        before = (K.gauge_topk.launches, K.combine_table.launches,
+                  K.combine_table_bwd.launches)
+        (gen(f * m, m) - f).abs().mean().backward()
+        after = (K.gauge_topk.launches, K.combine_table.launches,
+                 K.combine_table_bwd.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == ((0,) * 3 if d == "cpu"
+                                                               else (1,) * 3)
+        grads[str(d)] = {n: p.grad.cpu() for n, p in gen.named_parameters()}
+        assert all(p.grad is not None for p in gen.parameters())
+    for name, g in grads["cpu"].items():
+        if name.startswith("input."):
+            assert float(g.abs().max()) > 0
+            assert float((g - grads[str(dev)][name]).abs().max()) <= \
+                1e-4 * float(g.abs().max()), name
+
+
 # -- the fused DK/STDK MLP tail (csrc/dk_mlp_tail.cu, dk_mlp_tail_bwd.cu) ------
 
 def _tail_inputs(HW, J, h, dev, seed=0, dtype=torch.float32):

@@ -159,8 +159,13 @@ def test_seeded_init_is_reproducible():
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="shared-mask"):
+    with pytest.raises(NotImplementedError, match="generic IDW"):
         InputBlock(4, factored=False)
+    # the per-sample factored block (sti masks) is ported: it builds, and
+    # refuses a hoisted selection, which only a shared mask can use
+    block = InputBlock(4, factored=True, shared_batch_mask=False, max_points=128)
+    with pytest.raises(ValueError, match="prepared"):
+        block(torch.zeros(1, 4, 8, 8), torch.zeros(1, 4, 8, 8), prepared=(None,) * 3)
     # simple is ported: the registry builds it, by name and as the default
     for cfg in ({"model": {"name": "simple", "base_channels": 4}},
                 {"model": {"base_channels": 4}}):

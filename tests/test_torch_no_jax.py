@@ -53,6 +53,12 @@ def test_the_simple_family_is_among_the_scanned_files(name):
     assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
 
 
+@pytest.mark.parametrize("name", ["ops/idw.py", "ops/idw_factored_kernel.py",
+                                  "ops/layers.py", "data/masks.py"])
+def test_the_factored_idw_is_among_the_scanned_files(name):
+    assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
+
+
 def _violations(path: Path):
     """Imports of a blocked package, and string constants that name a ``.py``
     file under ``p2igan_tpu/`` or build such a path (``"p2igan_tpu"`` as a
