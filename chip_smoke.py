@@ -95,7 +95,34 @@
      parameter's last gradient finite and non-zero, running statistics moved,
      peak device memory, then a 6-step resume whose last 4 steps run under
      ``torch.profiler``.
-9. Prints the card, a JSON line of the twelve kernels (time, plain version's
+9. p2igan on masks that vary per frame (stin, fi, nowcasting: the shipped
+   configs with ``mask.type`` set in every split; keep 4, block 10, interval
+   2..6), through the generic IDW:
+   - the single pass (idw_knn_single, #8) at B=12, Q=262144, P=3200 and 4096
+     on random points, sti-lattice points, 2 valid points and an empty
+     sample: bitwise equal to its plain version on the card;
+   - the tiled pass (idw_knn_chunked, #9) at B=12 under each mask at the
+     config's budget (98304, 67968, 65536 points): out, sel_idx and w_norm
+     bitwise equal to the plain version on all 12 samples at fi and on two
+     under stin and nowcasting, the linearity
+     identity of its scatter backward, the time at B=8; and #9 bitwise equal
+     to #8 at P=3200;
+   - the single-pass backward (idw_knn_bwd, #10) at B=12, P=3200: each
+     sample within 1e-5 x the largest sum of |terms| a point of it receives,
+     and the linearity identity <dv, v> == <g, f(v)>;
+   - the torch.cdist -> topk -> gather chain (16384 queries a call; the port
+     never calls it) over the whole batch at P=3200 as ``library_ms`` of #8
+     and #10; #9's ``library_ms`` is null, the chain's time on one chunk of
+     one fi sample printed beside it;
+   - the two events served through ``scripts/infer_torch.py`` under each
+     mask (launch counts asserted: #9 twice an event, #3 six times, #8
+     never), and one window against the plain versions on the card;
+   - the generator's gradients at batch 12 on stin masks (#9) and on sti
+     masks through ``from_config(cfg, idw_factored=False)`` (P=3200: #8,
+     #10), every parameter against the plain versions;
+   - 15 hinge-GAN steps on stin masks at batch 12 with ``device_decode``
+     through ``scripts/train_torch.py`` and a profiled resume (#9's share).
+10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time where there is one, launches on the kernel's main path), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed check exits
@@ -138,13 +165,18 @@ from p2igan_tpu_torch.ops.dec2_stencil import (conv3d_cout1_sigmoid,
 from p2igan_tpu_torch.ops.doconv import make_d_diag
 from p2igan_tpu_torch.ops.enc0_conv import (enc0_conv3d_leaky,
                                             enc0_conv3d_leaky_reference)
-from p2igan_tpu_torch.ops.idw import (factored_prepare, factored_prepare_full,
-                                      gauge_geometry, idw_3d_factored)
+from p2igan_tpu_torch.ops import idw_kernel
+from p2igan_tpu_torch.ops.idw import (extract_points, factored_prepare,
+                                      factored_prepare_full, gauge_geometry,
+                                      idw_3d_factored)
 from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_dense, combine_dense_reference, combine_table, combine_table_bwd,
     combine_table_bwd_reference, combine_table_multi, combine_table_multi_bwd,
     combine_table_multi_bwd_reference, combine_table_multi_reference,
     combine_table_reference, gauge_topk, gauge_topk_reference)
+from p2igan_tpu_torch.ops.idw_kernel import (
+    idw_knn_bwd, idw_knn_bwd_reference, idw_knn_chunked, idw_knn_chunked_reference,
+    idw_knn_single, idw_knn_single_reference, prep_points, scatter_selection)
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
 from p2igan_tpu_torch.ops.wendland import build_phi_space
@@ -170,6 +202,18 @@ STI_BLOCK, STI_G, STI_DENSE_BLOCK, STI_DENSE_G = 10, 256, 4, 1152
 STI_SHAPES = (("train", TRAIN_BATCH, STI_BLOCK, STI_G),
               ("serve", WINDOW_BATCH, STI_BLOCK, STI_G),
               ("block 4", TRAIN_BATCH, STI_DENSE_BLOCK, STI_DENSE_G))
+# masks that vary per frame, with the shipped configs' keep 4, block_sizes [10]
+# and interval [2..6]: (type, point budget at full width), the generic IDW
+FRAME_MASK_ARGS = {"keep": 4, "block_sizes": [STI_BLOCK], "interval": [2, 3, 4, 5, 6]}
+FRAME_MASKS = (("fi", 98304), ("stin", 67968), ("nowcasting", 65536))
+# point counts of the single pass (#8, #10): the sti budget with idw_factored
+# off (169 gauges a frame: 2704 points), and its limit (a block-8 sti mask:
+# 256 gauges a frame, 4096 points)
+STI_POINTS = 3200
+SINGLE_PASS = ((STI_POINTS, STI_BLOCK), (4096, 8))
+GRID = (LENGTH, H, W)
+# queries of one library-chain chunk (torch.cdist -> topk -> gather)
+LIB_CHUNK = 16384
 # H100 SXM data sheet: device memory rate and the float32 rate outside the
 # tensor cores (the precision policy keeps TF32 off)
 PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
@@ -193,6 +237,12 @@ KERNELS = {
                           "p2igan_tpu/ops/pallas/idw_factored_kernel.py:444"),
     "combine_dense": (combine_dense, "p2igan_tpu_torch/csrc/combine_dense.cu",
                       "p2igan_tpu/ops/pallas/idw_factored_kernel.py:185"),
+    "idw_knn_single": (idw_knn_single, "p2igan_tpu_torch/csrc/idw_knn.cu",
+                       "p2igan_tpu/ops/pallas/idw_kernel.py:140"),
+    "idw_knn_chunked": (idw_knn_chunked, "p2igan_tpu_torch/csrc/idw_knn.cu",
+                        "p2igan_tpu/ops/pallas/idw_kernel.py:212"),
+    "idw_knn_bwd": (idw_knn_bwd, "p2igan_tpu_torch/csrc/idw_knn_bwd.cu",
+                    "p2igan_tpu/ops/pallas/idw_kernel.py:355"),
     "decode_normalize_mask": (decode_normalize_mask,
                               "p2igan_tpu_torch/csrc/decode_mask.cu",
                               "p2igan_tpu/ops/pallas/decode_mask.py:53"),
@@ -212,6 +262,9 @@ STI_SERVING_KERNELS = ("gauge_topk", "combine_table", "maxpool2_duplicate")
 LAUNCH_PATH = {"combine_table": "p2igan sti training",
                "combine_table_bwd": "p2igan sti training",
                "combine_dense": "idw_3d_factored op",
+               "idw_knn_single": "p2igan sti single pass gradients",
+               "idw_knn_bwd": "p2igan sti single pass gradients",
+               "idw_knn_chunked": "p2igan stin training",
                "mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training",
                "enc0_conv3d_leaky": "simple serving",
                "conv3d_cout1_sigmoid": "simple serving"}
@@ -651,6 +704,7 @@ def write_serving_tree(tmp: Path) -> Path:
     mask = fake.write_gauge_mask(tmp / "masks" / "gauge_mask_128.txt", H=H, W=W,
                                  n_gauges=79, seed=SEED)
     gen = P2IGenerator(H=H, W=W, length=LENGTH, num_res=NUM_RES, base_channels=BASE,
+                       idw_factored=True, idw_shared_batch_mask=True,
                        generator=torch.Generator().manual_seed(SEED))
     state = gen.state_dict()
     for key, val in list(state.items()):  # reference checkpoints carry D_diag
@@ -743,45 +797,78 @@ def check_against_cpu(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the generator through the plain versions of the combines and the
-    pool (the modules look them up at call time), e.g. on the card."""
-    saved = (idw_factored_kernel.combine_table_multi, idw_factored_kernel.combine_table,
-             layers.maxpool2_duplicate)
-    idw_factored_kernel.combine_table_multi = combine_table_multi_reference
-    idw_factored_kernel.combine_table = combine_table_reference
-    layers.maxpool2_duplicate = maxpool2_duplicate_reference
+    """Route the generator through the plain versions of the combines, the
+    generic IDW and the pool (the modules look them up at call time), e.g. on
+    the card."""
+    swaps = ((idw_factored_kernel, "combine_table_multi", combine_table_multi_reference),
+             (idw_factored_kernel, "combine_table", combine_table_reference),
+             (idw_kernel, "idw_knn_single", idw_knn_single_reference),
+             (idw_kernel, "idw_knn_chunked", idw_knn_chunked_reference),
+             (idw_kernel, "idw_knn_bwd", idw_knn_bwd_reference),
+             (layers, "maxpool2_duplicate", maxpool2_duplicate_reference))
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        (idw_factored_kernel.combine_table_multi, idw_factored_kernel.combine_table,
-         layers.maxpool2_duplicate) = saved
+        for (module, name, _), fn in zip(swaps, saved):
+            setattr(module, name, fn)
 
 
-def check_gradients(dev, sti: bool = False) -> None:
+# the kernels a generator forward and backward must launch, by mask
+GRADIENT_KERNELS = {"stis": ("combine_table_multi", "combine_table_multi_bwd"),
+                    "sti": ("gauge_topk", "combine_table", "combine_table_bwd"),
+                    "sti single pass": ("idw_knn_single", "idw_knn_bwd"),
+                    "stin": ("idw_knn_chunked",)}
+
+
+def check_gradients(dev, mode: str = "stis") -> dict:
     """One full-width generator forward and backward at batch 12: the
     autograd Functions must carry the gradient back to ``input.*`` (the
-    attention blocks before the combine) and ``Convsin.*`` (reached only
-    through the first pool). The ``input.*`` gradients are held against the
-    same computation through the plain versions on the card, within 1e-4 x
-    max|grad|: cuDNN's backward and the combine backward's reordered sums
-    change the last bits. ``sti``: every sample under its own block-10 mask,
-    the gauge selection inside the forward (kernels #1, #5, #6); else one
-    shared 79-gauge mask with the selection hoisted (#2, #4)."""
+    attention blocks before the IDW) and ``Convsin.*`` (reached only through
+    the first pool). Gradients are held against the same computation through
+    the plain versions on the card, within 1e-4 x max|grad|: cuDNN's backward
+    and the IDW backwards' reordered sums change the last bits. ``input.*``
+    on the factored paths, every parameter on the generic ones.
+
+    ``stis``: one shared 79-gauge mask, the selection hoisted (#2, #4);
+    ``sti``: every sample under its own block-10 mask, the gauge selection
+    inside the forward (#1, #5, #6); ``sti single pass``: the same masks
+    through the generic IDW, as ``from_config(cfg, idw_factored=False)``
+    builds it (P = 3200: #8 forward, #10 backward); ``stin``: a stin mask a
+    sample, 67968 points (#9, the scatter backward). Returns the launches."""
     rng = np.random.default_rng(SEED + 5)
-    if sti:
-        mask_xy = sti_masks("cpu", TRAIN_BATCH, STI_BLOCK, seed=SEED + 5).numpy()
-    else:
+    if mode == "stis":
         flat = np.zeros(H * W, np.float32)
         flat[rng.choice(H * W, 79, replace=False)] = 1.0
         mask_xy = flat.reshape(1, H, W)
-    masks = torch.from_numpy(np.broadcast_to(mask_xy[:, None, :, :, None],
-                                             (TRAIN_BATCH, LENGTH, H, W, 1)).copy()).to(dev)
+    elif mode == "stin":
+        mask_xy = None
+        masks_np = frame_masks("stin", TRAIN_BATCH, SEED + 5)
+    else:
+        mask_xy = sti_masks("cpu", TRAIN_BATCH, STI_BLOCK, seed=SEED + 5).numpy()
+    if mask_xy is not None:
+        masks_np = np.broadcast_to(mask_xy[:, None, :, :, None],
+                                   (TRAIN_BATCH, LENGTH, H, W, 1)).copy()
+    masks = torch.from_numpy(masks_np).to(dev)
     frames = torch.from_numpy(rng.random((TRAIN_BATCH, LENGTH, H, W, 1),
                                          dtype=np.float32)).to(dev)
-    budget = {"idw_max_points": LENGTH * STI_G, "idw_shared_batch_mask": False} if sti else {}
-    gen = P2IGenerator(H=H, W=W, length=LENGTH, num_res=NUM_RES, base_channels=BASE,
-                       generator=torch.Generator().manual_seed(SEED), device=dev, **budget)
-    kw = {} if sti else {"idw_prepared": gen.prepare_idw(masks[0, 0, :, :, 0])}
+    required = GRADIENT_KERNELS[mode]
+    seeded = {"generator": torch.Generator().manual_seed(SEED), "device": dev}
+    if mode == "sti single pass":
+        gen = P2IGenerator.from_config(sti_config(load_config(STI_TRAIN_CONFIG)),
+                                       idw_factored=False, **seeded)
+        if (gen.idw_factored, gen.idw_max_points, gen.base_channels) != \
+                (False, STI_POINTS, BASE):
+            fail(f"from_config(idw_factored=False) on sti built {gen.idw_max_points} points")
+    else:
+        idw_args = {"stis": {"idw_factored": True, "idw_shared_batch_mask": True},
+                    "sti": {"idw_factored": True, "idw_max_points": LENGTH * STI_G},
+                    "stin": {"idw_max_points": dict(FRAME_MASKS)["stin"]}}[mode]
+        gen = P2IGenerator(H=H, W=W, length=LENGTH, num_res=NUM_RES, base_channels=BASE,
+                           **seeded, **idw_args)
+    kw = {"idw_prepared": gen.prepare_idw(masks[0, 0, :, :, 0])} if mode == "stis" else {}
 
     def grads():
         gen.zero_grad(set_to_none=True)
@@ -793,34 +880,38 @@ def check_gradients(dev, sti: bool = False) -> None:
                 for n, p in gen.named_parameters()}
 
     reset_launches()
+    t0 = time.perf_counter()
     got = grads()
+    seconds = time.perf_counter() - t0
     launches = read_launches()
-    required = (("gauge_topk", "combine_table", "combine_table_bwd") if sti
-                else ("combine_table_multi", "combine_table_multi_bwd"))
     for name in required + ("maxpool2_duplicate",):
         if launches[name] <= 0:
-            fail(f"the generator backward launched no {name} kernel")
+            fail(f"the generator backward ({mode}) launched no {name} kernel")
     for name, g in got.items():
         if g is None or not bool(torch.isfinite(g).all()):
-            fail(f"generator parameter {name} has no finite gradient")
-    for prefix in ("input.", "Convsin."):
-        tensors = [g for n, g in got.items() if n.startswith(prefix)]
-        if not tensors or any(float(g.abs().max()) == 0.0 for g in tensors):
-            fail(f"a {prefix}* gradient is zero")
+            fail(f"generator parameter {name} has no finite gradient ({mode})")
+    generic = not gen.idw_factored
+    for name, g in got.items():
+        if (generic or name.startswith(("input.", "Convsin."))) and \
+                float(g.abs().max()) == 0.0:
+            fail(f"generator parameter {name} has a zero gradient ({mode})")
     with plain_versions():
         want = grads()
     worst = 0.0
     for name, g in got.items():
-        if name.startswith("input."):
+        if generic or name.startswith("input."):
             scale = float(want[name].abs().max())
             rel = float((g - want[name]).abs().max()) / scale
             worst = max(worst, rel)
             if not rel <= 1e-4:
-                fail(f"{name} gradient differs from the plain path by {rel:.2e} x max")
-    print(f"gradients at batch {TRAIN_BATCH} ({'a mask a sample (sti)' if sti else 'shared mask'}): "
-          f"all {len(got)} generator parameters finite, input.* and Convsin.* non-zero; "
-          f"input.* vs plain versions on the card: max {worst:.2e} x max|grad|; "
-          f"launches {launches}")
+                fail(f"{name} gradient differs from the plain path by {rel:.2e} x max ({mode})")
+    checked = "every parameter" if generic else "input.*"
+    print(f"gradients at batch {TRAIN_BATCH} ({mode}, {gen.idw_max_points} IDW points): "
+          f"all {len(got)} generator parameters finite, "
+          f"{'all' if generic else 'input.* and Convsin.*'} non-zero; {checked} vs plain "
+          f"versions on the card: max {worst:.2e} x max|grad|; forward + backward "
+          f"{seconds:.3f} s; launches {launches}")
+    return launches
 
 
 def time_input_block(dev) -> None:
@@ -836,7 +927,7 @@ def time_input_block(dev) -> None:
     line = []
     for label, shared, masks in (("stis, hoisted", True, shared_mask),
                                  ("sti", False, own_masks)):
-        block = layers.InputBlock(LENGTH, max_points=LENGTH * STI_G,
+        block = layers.InputBlock(LENGTH, max_points=LENGTH * STI_G, factored=True,
                                   shared_batch_mask=shared, frames=LENGTH, device=dev)
         prep = None
         if shared:
@@ -1024,6 +1115,301 @@ def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
           f"steps, #1 + #5 + #6 take {sum(ours.values()):.3f} ms = "
           f"{sum(ours.values()) / total:.4f}: "
           + ", ".join(f"{row} {ms:.3f}" for row, ms in ours.items()))
+    return launches, sps
+
+
+# -- the generic IDW: masks that vary per frame --------------------------------
+
+def frame_masks(kind: str, batch: int, seed: int) -> np.ndarray:
+    """(batch, T, H, W, 1) masks of ``kind`` as the loaders draw them with the
+    shipped configs' parameters (stin: 4 dense frames, then a block-10
+    jittered grid; fi: every (interval+1)-th frame dense; nowcasting: the
+    first 4 frames dense)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([create_mask_np((LENGTH, H, W, 1), rng, kind, **FRAME_MASK_ARGS)
+                     for _ in range(batch)])
+
+
+def knn_points(dev, batch: int, points: int, block: int, seed: int):
+    """(pts4, vals) of ``prep_points`` for ``batch`` samples of ``points``
+    slots, four cases in turn: random points; the observed voxels of a sti
+    mask of block size ``block`` (frame-constant, so every unobserved
+    query sees exact +-z ties, and the jittered grid adds integer-offset
+    ties); random points with 2 valid (fewer than k); none valid (empty)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((batch, points, 3), dtype=np.float32)
+    valid = np.ones((batch, points), bool)
+    lattice = sti_masks("cpu", batch, block, seed=seed)[:, None].expand(-1, LENGTH, -1, -1)
+    on_grid = extract_points(lattice, torch.zeros(batch, *GRID), points)
+    for b in range(1, batch, 4):
+        pts[b] = on_grid[0][b].numpy()
+        valid[b] = on_grid[2][b].numpy()
+    valid[2::4, 2:] = False
+    valid[3::4] = False
+    vals = rng.normal(size=(batch, points)).astype(np.float32) * valid
+    pts4, pv = prep_points(*(torch.from_numpy(a) for a in (pts, vals, valid)))
+    return pts4.to(dev), pv.to(dev)
+
+
+def knn_bound(batch: int, points: int, selection: bool = False) -> dict:
+    """The generic IDW's least time: every (query, point) pair costs the TPU
+    kernels' 9 + 3k operations and one square root; bytes are the points
+    (x, y, z, penalty) and values once, the output (and the selection, k
+    indices and weights a query) once."""
+    q = LENGTH * H * W
+    return bound(4 * batch * (5 * points + q * (1 + (2 * K if selection else 0))),
+                 batch * q * points * (9 + 3 * K + 1))
+
+
+def library_chain_ms(pts4: torch.Tensor, vals: torch.Tensor, backward: bool = False,
+                     whole: bool = True) -> float:
+    """The PyTorch calls for the same function (``torch.cdist`` without the
+    matrix-product expansion -> ``topk`` -> gather -> weighted mean; with
+    ``backward``, the normalized weights scattered back by ``index_add_``),
+    LIB_CHUNK queries a call: over every query of every sample with
+    ``whole``, else on the first chunk of the first sample only. One warm-up
+    chunk, then one timed pass. The port never calls it."""
+    grid = idw_kernel._grid(*GRID, str(pts4.device))
+
+    def chain(b, lo):
+        pts, pen, v = pts4[b, :, :3], pts4[b, :, 3], vals[b]
+        d = torch.cdist(grid[lo:lo + LIB_CHUNK], pts,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        d = torch.where(pen[None] > 0, float("inf"), d)
+        dist, idx = torch.topk(d, K, dim=1, largest=False)
+        w = 1.0 / (dist + 0.05) ** 2
+        w_norm = w / (w.sum(1, keepdim=True) + 1e-12)
+        out = (w_norm * v[idx]).sum(1)
+        if backward:
+            torch.zeros_like(v).index_add_(0, idx.reshape(-1), w_norm.reshape(-1))
+        return out
+
+    chunks = [(b, lo) for b in range(pts4.shape[0] if whole else 1)
+              for lo in range(0, grid.shape[0] if whole else 1, LIB_CHUNK)]
+    chain(0, 0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b, lo in chunks:
+        chain(b, lo)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_idw_knn_single(dev) -> dict:
+    """Kernel #8 at B=12 over the full (16, 128, 128) grid, at P = 3200 (the sti
+    budget with idw_factored off) and 4096 (its limit), on the four cases of
+    ``knn_points``: bitwise equal to its plain version on the card."""
+    result = {}
+    for points, block in SINGLE_PASS:
+        pts4, pv = knn_points(dev, TRAIN_BATCH, points, block, SEED + 30)
+        out_k = idw_knn_single(pts4, pv, GRID)
+        out_p = idw_knn_single_reference(pts4, pv, GRID)
+        torch.cuda.synchronize()
+        e = float((out_k - out_p).abs().max())
+        n_diff = int((out_k.view(torch.int32) != out_p.view(torch.int32)).sum())
+        if n_diff:
+            fail(f"idw_knn_single differs from its plain version at P={points}: "
+                 f"{n_diff} entries, max abs err {e}")
+        if bool(out_k[3::4].any()) or not bool(out_k[2::4].abs().max() > 0.1):
+            fail("idw_knn_single: an empty sample is not zero, or 2 valid points gave none")
+        k_ms = cuda_ms(lambda: idw_knn_single(pts4, pv, GRID), reps=10)
+        p_ms = cuda_ms(lambda: idw_knn_single_reference(pts4, pv, GRID), reps=1, warmup=0)
+        lib_ms = library_chain_ms(pts4, pv, whole=not result)
+        b_ = knn_bound(TRAIN_BATCH, points)
+        print(f"idw_knn_single B={TRAIN_BATCH} Q={LENGTH * H * W} P={points} k={K} "
+              f"(random, sti-lattice, 2 valid, empty): bitwise equal, {n_diff} entries "
+              f"differ, max abs err {e:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"cdist chain {lib_ms:.2f} ms ("
+              + ("every query of the batch" if not result else
+                 f"one {LIB_CHUNK}-query chunk of one sample")
+              + f"), bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+        if not result:
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_,
+                      "library_ms": lib_ms}
+    return result
+
+
+def frame_points(dev, kind: str, points: int, batch: int, seed: int):
+    """(pts4, vals) of ``batch`` windows under ``kind`` masks, their observed
+    voxels gathered by ``extract_points`` into the config's budget."""
+    masks = torch.from_numpy(frame_masks(kind, batch, seed)[..., 0]).to(dev)
+    values = torch.rand(masks.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    pts, vals, valid = extract_points(masks, values * masks, points)
+    n_obs = int((masks > 0).sum(dim=(1, 2, 3)).max())
+    if not 0 < n_obs <= points or int(valid.sum(1).max()) != n_obs:
+        fail(f"{kind}: {n_obs} observed voxels for a budget of {points}")
+    return prep_points(pts, vals, valid)
+
+
+def check_idw_knn_chunked(dev) -> dict:
+    """Kernel #9 at Q = 262144 under each mask that varies per frame, B=12 at
+    the config's budget (fi 98304, stin 67968, nowcasting 65536 points): out,
+    sel_idx and w_norm bitwise equal to the plain version on all 12 samples
+    at fi (the kernels line's row; the plain version takes ~2 s a sample) and
+    on the first two under stin and nowcasting; the linearity identity of the
+    scatter backward; the time at serving's B=8. Then #9 against #8 at
+    P = 3200, bit for bit. The kernels line reports fi at B=12, with no
+    library time: the cdist chain over the whole batch would take minutes,
+    so it is timed on one chunk and printed as that."""
+    result = {}
+    for kind, points in FRAME_MASKS:
+        pts4, pv = frame_points(dev, kind, points, TRAIN_BATCH, SEED + 31)
+        out_k, (sel_k, w_k) = idw_knn_chunked(pts4, pv, GRID, with_sel=True)
+        n = TRAIN_BATCH if kind == "fi" else 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p, (sel_p, w_p) = idw_knn_chunked_reference(pts4[:n], pv[:n], GRID)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        e = float((out_k[:n] - out_p).abs().max())
+        if not (bitwise_equal(out_k[:n], out_p) and torch.equal(sel_k[:n], sel_p)
+                and bitwise_equal(w_k[:n], w_p)):
+            fail(f"idw_knn_chunked ({kind}) differs from its plain version: out "
+                 f"{int((out_k[:n] != out_p).sum())} entries, max abs err {e}; sel_idx "
+                 f"{int((sel_k[:n] != sel_p).sum())}")
+        g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(SEED)).to(dev)
+        lhs = float((scatter_selection(sel_k, w_k, g, pts4.shape[1]).double()
+                     * pv.double()).sum())
+        rhs = float((g.double() * out_k.double()).sum())
+        tol = 1e-5 * float((g.abs().double() * idw_knn_chunked(pts4, pv.abs(), GRID)[0]
+                            .double()).sum())
+        if not abs(lhs - rhs) <= tol:
+            fail(f"chunked scatter backward ({kind}): <dv, v> {lhs} vs <g, f(v)> {rhs}")
+        k_ms = cuda_ms(lambda: idw_knn_chunked(pts4, pv, GRID, with_sel=True), reps=3,
+                       warmup=1)
+        serve_ms = cuda_ms(lambda: idw_knn_chunked(pts4[:WINDOW_BATCH], pv[:WINDOW_BATCH],
+                                                   GRID), reps=3, warmup=1)
+        b_ = knn_bound(TRAIN_BATCH, points, selection=True)
+        line = (f"idw_knn_chunked[{kind}] B={TRAIN_BATCH} Q={LENGTH * H * W} P={points} "
+                f"k={K}: out, sel_idx, w_norm bitwise equal on {n} samples, max abs err "
+                f"{e:.3e}; <dv, v> - <g, f(v)> = {lhs - rhs:.3e} (limit {tol:.3e}); "
+                f"kernel {k_ms:.4f} ms with the selection, B={WINDOW_BATCH} without "
+                f"{serve_ms:.4f} ms; plain {p_ms:.1f} ms on {n} samples; "
+                f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}), "
+                f"{b_['bound_ms'] / k_ms:.3f} of it")
+        if kind == "fi":
+            lib_ms = library_chain_ms(pts4, pv, whole=False)
+            line += f"; cdist chain {lib_ms:.1f} ms on one {LIB_CHUNK}-query chunk of one sample"
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+        print(line)
+    pts4, pv = knn_points(dev, TRAIN_BATCH, STI_POINTS, STI_BLOCK, SEED + 32)
+    if not bitwise_equal(idw_knn_chunked(pts4, pv, GRID)[0], idw_knn_single(pts4, pv, GRID)):
+        fail(f"idw_knn_chunked differs from idw_knn_single at P={STI_POINTS}")
+    print(f"idw_knn_chunked at P={STI_POINTS} (the four cases): bitwise equal to "
+          f"idw_knn_single")
+    return result
+
+
+def check_idw_knn_bwd(dev) -> dict:
+    """Kernel #10 at B=12, P = 3200, Q = 262144 on the four cases: each
+    sample within 1e-5 x the largest sum of |terms| a point of that sample
+    receives (the plain backward of |g|: both sum float32 terms in orders of
+    their own, and with fewer than k valid points one point takes a term from
+    every query), whether two runs agree bitwise, and <dv, v> == <g, f(v)>
+    within 1e-5 x <|g|, f(|v|)>."""
+    pts4, pv = knn_points(dev, TRAIN_BATCH, STI_POINTS, STI_BLOCK, SEED + 33)
+    g = torch.randn((TRAIN_BATCH, LENGTH * H * W),
+                    generator=torch.Generator().manual_seed(SEED + 33)).to(dev)
+    got = idw_knn_bwd(pts4, g, GRID)
+    again = idw_knn_bwd(pts4, g, GRID)
+    want = idw_knn_bwd_reference(pts4, g, GRID)
+    mass = idw_knn_bwd_reference(pts4, g.abs(), GRID).amax(dim=1)
+    err = (got - want).abs().amax(dim=1)
+    e, ratio = float(err.max()), float((err / mass).max())
+    if not (bool((mass > 0).all()) and ratio <= 1e-5):
+        fail(f"idw_knn_bwd: a sample's max abs err is {ratio} x its largest sum of "
+             f"|terms| (errors {err.tolist()}, sums {mass.tolist()})")
+    rhs = float((g.double() * idw_knn_single(pts4, pv, GRID).double()).sum())
+    lhs = float((got.double() * pv.double()).sum())
+    tol = 1e-5 * float((g.abs().double() * idw_knn_single(pts4, pv.abs(), GRID)
+                        .double()).sum())
+    if not abs(lhs - rhs) <= tol:
+        fail(f"idw_knn_bwd: <dv, v> {lhs} vs <g, f(v)> {rhs}")
+    k_ms = cuda_ms(lambda: idw_knn_bwd(pts4, g, GRID), reps=10)
+    p_ms = cuda_ms(lambda: idw_knn_bwd_reference(pts4, g, GRID), reps=1, warmup=0)
+    lib_ms = library_chain_ms(pts4, pv, backward=True)
+    b_ = knn_bound(TRAIN_BATCH, STI_POINTS)
+    print(f"idw_knn_bwd B={TRAIN_BATCH} Q={LENGTH * H * W} P={STI_POINTS} k={K}: max abs err "
+          f"{e:.3e}, at most {ratio:.2e} x the sample's largest sum of |terms| (sums "
+          f"{float(mass.min()):.3f} to {float(mass.max()):.3f}), repeats "
+          f"bitwise: {bitwise_equal(got, again)}; <dv, v> - <g, f(v)> = {lhs - rhs:.3e} "
+          f"(limit {tol:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cdist chain + "
+          f"index_add_ {lib_ms:.2f} ms (every query of the batch), bound {b_['bound_ms']:.4f} ms "
+          f"({b_['bound_by']})")
+    return {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_, "library_ms": lib_ms}
+
+
+def frame_config(cfg: dict, kind: str) -> dict:
+    """A shipped config with ``mask.type`` set to ``kind`` in every split."""
+    for split in ("train", "test"):
+        mask = cfg["data"][split]["mask"]
+        mask["type"] = kind
+        if {key: mask[key] for key in FRAME_MASK_ARGS} != FRAME_MASK_ARGS:
+            fail(f"the shipped config's mask is {mask}")
+    return cfg
+
+
+def serve_frame_masks(tmp: Path, card: str, dev, kind: str, points: int) -> dict:
+    """The two 64-frame events through scripts/infer_torch.py under ``kind``
+    masks (one an event from the test loader, each window its slice):
+    nothing is hoisted, every generator call (2 an event at window batch 8)
+    runs #9 once for its 8 windows, #8 never. Then one 16-frame window under
+    a fresh mask, the generator on the card against the same with the plain
+    versions on the card (1e-4 on the tanh scale, i.e. 1e-4 x 255 served)."""
+    cfg = frame_config(load_config(tmp / "eval.json"), kind)
+    cfg["save_dir"] = str(tmp / f"weights_{kind}")
+    cfg_path = tmp / f"eval_{kind}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    checkpoint = tmp / "P2IGAN_seeded.pt"
+    launches, events_per_s = serve(tmp, cfg_path, checkpoint, f"p2igan_{kind}",
+                                   required=("idw_knn_chunked", "maxpool2_duplicate"))
+    calls = EVENTS * (-(-(EVENT_FRAMES // 4) // WINDOW_BATCH))
+    want = {**dict.fromkeys(launches, 0), "idw_knn_chunked": calls,
+            "maxpool2_duplicate": 3 * calls}
+    if launches != want:
+        fail(f"{kind} serving launched {launches}, expected {want}")
+    gen = load_generator(cfg, checkpoint, dev)
+    if gen.idw_factored or gen.idw_max_points != points:
+        fail(f"the {kind} config built idw_factored={gen.idw_factored}, "
+             f"{gen.idw_max_points} points")
+    ev = zarrlite.open(tmp / "test_events.zarr", mode="r")["event_01"][:LENGTH]
+    masks = torch.from_numpy(frame_masks(kind, 1, SEED + 34)).to(dev)
+    masked = torch.from_numpy(ev[None, ..., None].astype(np.float32) / 255.0).to(dev) * masks
+    with torch.inference_mode():
+        got = gen(masked, masks)
+        with plain_versions():
+            want_out = gen(masked, masks)
+    err = float((got - want_out).abs().max())
+    print(f"p2igan {kind} serving: {events_per_s:.4f} events/s on {card}; a 64-frame event "
+          f"launches idw_knn_chunked x{calls // EVENTS} (P={points}); one window, card vs "
+          f"plain versions on the card: max abs err {err:.3e} (tanh scale)")
+    if not (bool(torch.isfinite(got).all()) and err <= 1e-4):
+        fail(f"{kind}: the window differs from the plain versions by {err}")
+    return launches
+
+
+def train_stin(tmp: Path, card: str, dev) -> tuple:
+    """The hinge GAN on p2igan_gan_baseline.json with stin masks (batch 12, a
+    mask a sample, 67968 points) and ``device_decode`` through
+    scripts/train_torch.py: #9 once a step with its selection and once a
+    validation batch without, the scatter backward (``index_add_``), #11 with
+    the whole (T, H, W) mask a sample; then the profiled resume."""
+    cfg = frame_config(write_train_tree(tmp, STI_TRAIN_CONFIG), "stin")
+    cfg["data"]["train"]["device_decode"] = True
+    label = "p2igan stin GAN device_decode"
+    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {
+        "idw_knn_chunked": steps + val, "maxpool2_duplicate": 3 * (steps + val),
+        "decode_normalize_mask": None})
+    summary = json.loads((tmp / f"profile_{label.replace(' ', '_')}" / "summary.json")
+                         .read_text())
+    total = sum(summary["kernel_ms"].values())
+    ours = sum(ms for key, ms in summary["kernel_ms"].items()
+               if "idw_knn_chunked_kernel(" in key)
+    if not (total > 0 and ours > 0):
+        fail("the stin profile shows no device time for idw_knn_chunked_kernel")
+    print(f"{label}: of {total:.2f} ms of kernel time in the {summary['steps']} profiled "
+          f"steps, #9 takes {ours:.3f} ms = {ours / total:.4f}")
     return launches, sps
 
 
@@ -1555,7 +1941,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     set_precision_policy()
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     cuda_lib.library()
     print(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s: "
           f"{cuda_lib.library_path().name}")
@@ -1572,6 +1958,9 @@ def main() -> int:
                "combine_table": check_combine_table(dev),
                "combine_table_bwd": check_combine_table_bwd(dev),
                "combine_dense": check_combine_dense(dev),
+               "idw_knn_single": check_idw_knn_single(dev),
+               "idw_knn_chunked": check_idw_knn_chunked(dev),
+               "idw_knn_bwd": check_idw_knn_bwd(dev),
                "mlp_tail_fused": check_mlp_tail(dev),
                "mlp_tail_bwd": check_mlp_tail_bwd(dev),
                "enc0_conv3d_leaky": check_enc0(dev),
@@ -1593,16 +1982,26 @@ def main() -> int:
         paths["p2igan serving"], events_per_s = serve(tmp, cfg_path, checkpoint, "p2igan")
         check_against_cpu(tmp, cfg_path, checkpoint, "p2igan", dev)
         print(f"p2igan serving: {events_per_s:.4f} events/s on {card}")
-        check_gradients(dev)
+        check_gradients(dev, "stis")
         paths["p2igan training"] = train(tmp, card, dev)
         paths["p2igan sti serving"] = serve_sti(tmp, card, dev)
-        check_gradients(dev, sti=True)
+        check_gradients(dev, "sti")
         host_loader_rate(tmp, sti_config(write_train_tree(tmp, STI_TRAIN_CONFIG)),
                          "sti, a mask drawn per window")
         for decode in (False, True):
             label = "p2igan sti training" + (" device_decode" if decode else "")
             paths[label], sps = train_sti(tmp, card, dev, decode)
             print(f"{label}: {sps:.4f} GAN steps/s on {card}")
+        for kind, points in FRAME_MASKS:
+            t0 = time.perf_counter()
+            paths[f"p2igan {kind} serving"] = serve_frame_masks(tmp, card, dev, kind, points)
+            print(f"p2igan {kind} serving phase: {time.perf_counter() - t0:.1f} s")
+        for mode in ("stin", "sti single pass"):
+            paths[f"p2igan {mode} gradients"] = check_gradients(dev, mode)
+        t0 = time.perf_counter()
+        paths["p2igan stin training"], sps = train_stin(tmp, card, dev)
+        print(f"p2igan stin training: {sps:.4f} GAN steps/s on {card}; phase "
+              f"{time.perf_counter() - t0:.1f} s")
         host_loader_rate(tmp, write_train_tree(tmp, DK_FAMILY["dk"][1]), "stis gauge file")
         for model in DK_FAMILY:
             cfg_path, checkpoint = write_dk_serving(tmp, model)
@@ -1618,6 +2017,7 @@ def main() -> int:
             paths[label], sps = train_simple(tmp, card, dev, use_gan)
             print(f"{label}: {sps:.4f} steps/s on {card}")
 
+    print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"launches_by_path": paths}))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": paths[LAUNCH_PATH.get(name, "p2igan training")][name],

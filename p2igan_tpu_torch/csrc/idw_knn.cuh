@@ -1,0 +1,127 @@
+// The selection of the generic IDW k-NN, shared by the single-pass forward
+// (#8, idw_knn.cu), the tiled forward (#9, idw_knn.cu) and the single-pass
+// backward (#10, idw_knn_bwd.cu), so the tie-sensitive arithmetic exists once,
+// as _idw_kernel / _idw_topk_chunk_kernel / _idw_bwd_kernel share it in
+// p2igan_tpu/ops/pallas/idw_kernel.py.
+//
+// A point is a float4 (x, y, z, penalty): the penalty is 0 for a valid point
+// and 1e30 for an invalid or padding slot. The selection metric is
+// sqrt(((dx*dx + dy*dy) + dz*dz) + penalty), every step rounded to nearest
+// (the library builds with -fmad=false, and the intrinsics spell it out).
+// A query keeps its k best (d, index) pairs in registers, sorted
+// lexicographically. Candidates are visited in ascending index and enter
+// only when d is strictly below the k-th entry, so an equal distance keeps
+// the lower index: exactly k first-min rounds with the lowest-index tie rule.
+// Entries move down the list on the (d, index) order, so a merge of lists
+// from disjoint index ranges would give the same result.
+
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+
+namespace p2i {
+
+constexpr int kKnnMaxK = 8;
+
+struct KnnList {
+  float d[kKnnMaxK];
+  int idx[kKnnMaxK];
+  float worst;  // d[k - 1]: a candidate must be strictly below it to enter
+};
+
+__device__ __forceinline__ void knn_init(KnnList& l) {
+#pragma unroll
+  for (int r = 0; r < kKnnMaxK; ++r) {
+    l.d[r] = __int_as_float(0x7f800000);  // +inf
+    l.idx[r] = INT_MAX;
+  }
+  l.worst = __int_as_float(0x7f800000);
+}
+
+// Query q of the (D, H, W) grid: the grid_points() coordinates, x fastest.
+__device__ __forceinline__ void knn_query(const float* __restrict__ lx,
+                                          const float* __restrict__ ly,
+                                          const float* __restrict__ lz, int q,
+                                          int H, int W, float& qx, float& qy,
+                                          float& qz) {
+  const int x = q % W;
+  const int t = q / W;
+  qx = lx[x];
+  qy = ly[t % H];
+  qz = lz[t / H];
+}
+
+__device__ __forceinline__ float knn_distance(float qx, float qy, float qz,
+                                              float4 p) {
+  const float dx = __fsub_rn(qx, p.x);
+  const float dy = __fsub_rn(qy, p.y);
+  const float dz = __fsub_rn(qz, p.z);
+  const float d2 = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)),
+      p.w);
+  return __fsqrt_rn(d2);
+}
+
+// Insert (d, i) into the first k entries, keeping them sorted on (d, index).
+__device__ __forceinline__ void knn_insert(KnnList& l, float d, int i, int k) {
+  float cd = d;
+  int ci = i;
+#pragma unroll
+  for (int r = 0; r < kKnnMaxK; ++r) {
+    if (r < k) {
+      const bool before = cd < l.d[r] || (cd == l.d[r] && ci < l.idx[r]);
+      const float td = before ? l.d[r] : cd;
+      const int ti = before ? l.idx[r] : ci;
+      l.d[r] = before ? cd : l.d[r];
+      l.idx[r] = before ? ci : l.idx[r];
+      cd = td;
+      ci = ti;
+    }
+  }
+  float w = l.d[0];
+#pragma unroll
+  for (int r = 1; r < kKnnMaxK; ++r) w = (r == k - 1) ? l.d[r] : w;
+  l.worst = w;
+}
+
+// Visit points [0, n) of a shared-memory tile whose first point has global
+// index base.
+__device__ __forceinline__ void knn_scan(KnnList& l, float qx, float qy,
+                                         float qz, const float4* s_pts, int n,
+                                         int base, int k) {
+  for (int j = 0; j < n; ++j) {
+    const float d = knn_distance(qx, qy, qz, s_pts[j]);
+    if (d < l.worst) knn_insert(l, d, base + j, k);
+  }
+}
+
+// IDW weight of a selected distance (_weight_from_d of the TPU kernels): an
+// invalid slot's 1e15 gives ~1e-30, effectively zero.
+__device__ __forceinline__ float knn_weight(float d, float rho, float tau,
+                                            int rho_is_2) {
+  const float dt = __fadd_rn(d, tau);
+  if (rho_is_2) {
+    const float invd = __fdiv_rn(1.0f, dt);
+    return __fmul_rn(invd, invd);
+  }
+  return __fdiv_rn(1.0f, powf(dt, rho));
+}
+
+// The k weights in round order and their sum + 1e-12 (the normalizer).
+__device__ __forceinline__ float knn_weights(const KnnList& l, int k, float rho,
+                                             float tau, int rho_is_2,
+                                             float (&w)[kKnnMaxK]) {
+  float w_sum = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kKnnMaxK; ++r) {
+    w[r] = 0.0f;
+    if (r < k) {
+      w[r] = knn_weight(l.d[r], rho, tau, rho_is_2);
+      w_sum = __fadd_rn(w_sum, w[r]);
+    }
+  }
+  return __fadd_rn(w_sum, 1e-12f);
+}
+
+}  // namespace p2i

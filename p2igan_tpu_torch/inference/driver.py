@@ -81,7 +81,8 @@ class SlidingWindowReconstructor:
         """Fail loudly when any event/frame mask holds more gauges than the
         factored IDW's static slot budget (the selection would drop some):
         the shared-mask generator's hoisted selection and the per-sample
-        generator's in-forward one alike."""
+        generator's in-forward one alike. The generic IDW is not guarded, as
+        in the JAX package: points beyond its budget are dropped."""
         gen = self.generator
         if not getattr(gen, "idw_factored", False):
             return
@@ -99,9 +100,11 @@ class SlidingWindowReconstructor:
     def _supports_prepared_idw(self) -> bool:
         """True when the generator's IDW gauge selection is a constant of the
         event mask (the factored shared-mask path of p2igan, stis) and is
-        hoisted out of the window loop. A per-sample (sti) generator hoists
-        nothing: every window computes its own selection, so a window batch
-        may mix events. dk, stdk and simple have no IDW."""
+        hoisted out of the window loop. A per-sample (sti) generator and a
+        generic one (masks that vary per frame: stin, fi, nowcasting) hoist
+        nothing: every window computes its own selection from its own slice
+        of its event's mask, so a window batch may mix events. dk, stdk and
+        simple have no IDW."""
         gen = self.generator
         return bool(getattr(gen, "idw_factored", False)
                     and getattr(gen, "idw_shared_batch_mask", False))
@@ -168,8 +171,8 @@ class SlidingWindowReconstructor:
         """Reconstruct equal-length events (E, T, H, W, C) as one flattened
         window stream. With the hoisted IDW the stream shares ONE gauge
         selection, so events with different masks are then reconstructed one
-        by one instead; a per-sample (sti) generator takes them as one stream
-        whatever their masks."""
+        by one instead; a per-sample (sti) or generic generator takes them as
+        one stream whatever their masks."""
         self._check_gauge_budget(masks)
         if self._supports_prepared_idw() and not self._masks_shared(masks):
             return np.stack([self(masked[e], masks[e])

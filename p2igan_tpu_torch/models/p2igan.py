@@ -2,8 +2,9 @@
 (B, T, H, W, C) at the API).
 
 Counterpart of ``p2igan_tpu/models/p2igan.py`` (reference
-``p2igan_bench/models/p2igan.py:72-173``). The generator, on frame-constant
-masks (stis: one mask for the batch; sti: one per sample):
+``p2igan_bench/models/p2igan.py:72-173``). The generator, on any mask type
+(stis: one frame-constant mask for the batch; sti: one per sample; stin, fi,
+nowcasting: masks that vary per frame, through the generic IDW):
 
   flatten T into channels -> InputBlock IDW densification -> grouped 3x3
   DO-conv + repeat-interleave(4) skip -> 3x DownsampleDuplicateChannels pyramid
@@ -93,13 +94,15 @@ class P2IGenerator(nn.Module):
     """Main generator: masked/masks (B, T, H, W, C) -> preds (B, T, H, W, C).
 
     ``inference=True`` builds the folded serving variant (plain DO-conv
-    kernels); :meth:`fold_for_inference` derives it from a trained one.
+    kernels); :meth:`fold_for_inference` derives it from a trained one. The
+    IDW defaults are the JAX class's: the generic IDW (``idw_factored``
+    False); :meth:`from_config` picks the factored path for sti/stis masks.
     Weights are initialized from ``generator`` (a ``torch.Generator``)."""
 
     def __init__(self, H: int = 128, W: int = 128, length: int = 16,
                  num_res: int = 4, base_channels: int = 64, in_channels: int = 1,
                  inference: bool = False, idw_max_points: int = 2048,
-                 idw_factored: bool = True, idw_shared_batch_mask: bool = True,
+                 idw_factored: bool = False, idw_shared_batch_mask: bool = False,
                  idw_k: int = 4, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()

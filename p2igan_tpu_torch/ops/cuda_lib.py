@@ -57,6 +57,9 @@ _SIGNATURES = {
     "p2i_dk_mlp_tail_bwd": [_P] * 13 + [_I, _I, _I, _I, _P],
     "p2i_enc0_conv3d_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "p2i_dec2_conv3d_sigmoid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2i_idw_knn_single": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
+    "p2i_idw_knn_chunked": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    "p2i_idw_knn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
 }
 
 

@@ -9,8 +9,10 @@ the mask; the value stage runs every forward: :func:`factored_apply_gauges_batch
 for windows that share one mask (stis), :func:`factored_apply_gauges` for
 windows that each carry their own (sti), :func:`factored_apply` /
 :func:`idw_3d_factored` from a dense field. The hand-written kernels behind
-all of them live in :mod:`.idw_factored_kernel`. The generic IDW for masks
-that vary per frame (``extract_points``, ``idw_3d_knn``) is not ported.
+all of them live in :mod:`.idw_factored_kernel`. Masks that vary per frame
+(stin, fi, nowcasting) take the generic IDW: :func:`extract_points` gathers
+the observed voxels into a static point budget and :func:`idw_3d_knn`
+densifies them through the kernels of :mod:`.idw_kernel`.
 
 Layouts follow the JAX package: gd2/gsel are (HW, k), gauge tables (N, D, G);
 where the JAX package ``vmap``s, the port's functions take a leading batch axis.
@@ -68,6 +70,23 @@ def _pixel_tables(H: int, W: int, device: str = "cpu"):
     return tuple(torch.from_numpy(a).to(device) for a in (qx, qy, cx, cy))
 
 
+def _rank_into_slots(obs: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """(B, N) observed flags -> (B, n_slots) int64: the flat index of each
+    slot's observation in ascending order, N for an empty slot. Observations
+    beyond ``n_slots`` are dropped, as the JAX package's static
+    ``nonzero(size=...)`` drops them. On the device without a host round trip:
+    an observation's slot is how many observations precede it (a cumulative
+    sum); the unobserved and the over-budget ones land in a spare column that
+    is cut."""
+    B, N = obs.shape
+    rank = torch.cumsum(obs, dim=1) - 1
+    dest = torch.where(obs & (rank < n_slots), rank, torch.full_like(rank, n_slots))
+    flat = torch.arange(N, device=obs.device).expand(B, N)
+    idx = torch.full((B, n_slots + 1), N, dtype=torch.int64, device=obs.device)
+    idx.scatter_(1, dest, flat)
+    return idx[:, :n_slots]
+
+
 def gauge_geometry(mask_xy: torch.Tensor, max_gauges: int):
     """Inputs of the gauge top-k for an (H, W) mask (>0 = observed), or for a
     batch of masks (B, H, W): every result but qx, qy then leads with B.
@@ -85,19 +104,8 @@ def gauge_geometry(mask_xy: torch.Tensor, max_gauges: int):
     lead = tuple(mask_xy.shape[:-2])
     H, W = mask_xy.shape[-2:]
     HW = H * W
-    dev = mask_xy.device
-    qx, qy, cx, cy = _pixel_tables(H, W, str(dev))
-    obs = mask_xy.reshape(-1, HW) > 0
-    B = obs.shape[0]
-    # slot of an observed pixel = how many observed pixels precede it; the
-    # unobserved and the over-budget ones land in a spare column that is cut
-    rank = torch.cumsum(obs, dim=1) - 1
-    dest = torch.where(obs & (rank < max_gauges), rank,
-                       torch.full_like(rank, max_gauges))
-    pix = torch.arange(HW, device=dev).expand(B, HW)
-    gidx = torch.full((B, max_gauges + 1), HW, dtype=torch.int64, device=dev)
-    gidx.scatter_(1, dest, pix)
-    gidx = gidx[:, :max_gauges]
+    qx, qy, cx, cy = _pixel_tables(H, W, str(mask_xy.device))
+    gidx = _rank_into_slots(mask_xy.reshape(-1, HW) > 0, max_gauges)
     safe = gidx.clamp(max=HW - 1)
     penalty = torch.where(gidx < HW, 0.0, 1e30).to(torch.float32)
     return (qx, qy) + tuple(t.reshape(lead + (max_gauges,)).contiguous()
@@ -212,6 +220,65 @@ def idw_3d_factored(mask_xy: torch.Tensor, values_dhw: torch.Tensor,
     the reference's nonzero order."""
     gd2, gpix = factored_prepare(mask_xy, max_gauges, k=k)
     return factored_apply(gd2, gpix, values_dhw, k=k, rho=rho, tau=tau)
+
+
+@functools.lru_cache(maxsize=8)
+def axis_coords(n: int, device: str = "cpu") -> torch.Tensor:
+    """(n,) float32 coordinates idx/(n-1) of a point at index idx of an axis,
+    made on the host in numpy (a division on the device would not do: see
+    :func:`_pixel_tables`)."""
+    c = np.arange(n, dtype=np.float32) / np.float32(max(n - 1, 1))
+    return torch.from_numpy(c).to(device)
+
+
+def extract_points(mask_dhw: torch.Tensor, values_dhw: torch.Tensor,
+                   max_points: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Static-shape gather of the observed voxels of (B, D, H, W) masks (>0 =
+    observed) and values; a (D, H, W) pair gives unbatched results (the JAX
+    package ``vmap``s it).
+
+    Returns points (B, max_points, 3) as normalized (x, y, z), values
+    (B, max_points) and valid (B, max_points) bool. Slots fill in flat t-major
+    order; points beyond ``max_points`` are dropped (callers size the budget
+    from the mask config), and an empty slot holds the last voxel's
+    coordinates (its index clamped to n-1, as in the JAX package) with value 0
+    and valid False. Differentiable in the values; no host sync."""
+    if mask_dhw.dim() == 3:
+        pts, vals, valid = extract_points(mask_dhw[None], values_dhw[None], max_points)
+        return pts[0], vals[0], valid[0]
+    B, D, H, W = mask_dhw.shape
+    n = D * H * W
+    dev = str(mask_dhw.device)
+    idx = _rank_into_slots(mask_dhw.reshape(B, n) > 0, max_points)
+    valid = idx < n
+    safe = idx.clamp(max=n - 1)
+    points = torch.stack([axis_coords(W, dev)[safe % W],
+                          axis_coords(H, dev)[(safe // W) % H],
+                          axis_coords(D, dev)[safe // (H * W)]], dim=-1)
+    vals = torch.gather(values_dhw.reshape(B, n), 1, safe)
+    return points, vals * valid.to(vals.dtype), valid
+
+
+def idw_3d_knn(points_xyz: torch.Tensor, values: torch.Tensor,
+               valid: torch.Tensor, out_shape: Tuple[int, int, int], k: int = 4,
+               rho: float = 2.0, tau: float = 0.05) -> torch.Tensor:
+    """IDW k-NN interpolation of P points onto the dense (D, H, W) grid
+    (``grid_points`` order): points (B, P, 3), values (B, P), valid (B, P) ->
+    (B, D, H, W); unbatched (P, 3), (P,), (P,) -> (D, H, W).
+
+    Every query takes its k nearest points by the correctly rounded float32
+    sqrt distance, lowest index on ties; invalid points carry a 1e30 penalty
+    (so they stay selectable, with weight ~1e-30, when fewer than k are valid,
+    as in the JAX package's Pallas kernels). P up to ``P_SINGLE_PASS_MAX``
+    runs in one pass (kernel #8, its backward #10), a larger P streams the
+    points (kernel #9, whose backward scatters the forward's own selection).
+    Differentiable in ``values``; the points get no gradient."""
+    from .idw_kernel import idw_knn
+
+    if points_xyz.dim() == 2:
+        return idw_3d_knn(points_xyz[None], values[None], valid[None], out_shape,
+                          k=k, rho=rho, tau=tau)[0]
+    return idw_knn(points_xyz, values, valid, out_shape, k=k, rho=rho, tau=tau)
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:

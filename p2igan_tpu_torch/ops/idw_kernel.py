@@ -1,0 +1,344 @@
+"""Hand-written CUDA kernels of the generic IDW k-NN, with their plain versions.
+
+Counterpart of ``p2igan_tpu/ops/pallas/idw_kernel.py``: the densification of
+masks that vary per frame (stin, fi, nowcasting), where the observed voxels
+do not factor into gauges x frames. Three kernels:
+
+* :func:`idw_knn_single` -- P up to :data:`P_SINGLE_PASS_MAX` points: every
+  query's k nearest points and their weighted mean, the sample's points
+  resident in shared memory (``csrc/idw_knn.cu``, kernel #8);
+* :func:`idw_knn_chunked` -- any P: the same selection with the points
+  streamed through shared memory in tiles, optionally returning the selection
+  (``csrc/idw_knn.cu``, kernel #9);
+* :func:`idw_knn_bwd` -- d_values of the single-pass forward: the selection
+  is recomputed and the normalized weight x cotangent scattered into the
+  points (``csrc/idw_knn_bwd.cu``, kernel #10).
+
+:func:`idw_knn` is the differentiable op: P <= 4096 runs #8 forward and #10
+backward; a larger P runs #9 forward and scatters the forward's own selection
+backward (``index_add_``; the JAX package does that scatter in XLA, outside
+any kernel). The split at 4096 keeps the JAX package's dispatch, so a given P
+takes the same selection and the same backward in both packages.
+
+Arithmetic (the Pallas kernels', not the XLA fallback's): points are padded
+to ``round_up(max(P, 128), 128)`` slots, invalid and padding slots carry a
+1e30 penalty and value 0; d2 = ((dx*dx + dy*dy) + dz*dz) + penalty; the
+selection metric is the correctly rounded float32 sqrt; k first-min rounds,
+lowest index on ties; w = (1/(d + tau))^2 at rho = 2; out = sum(w v) /
+(sum(w) + 1e-12). Each wrapper runs its plain PyTorch version for CPU tensors
+and launches its kernel for CUDA tensors (or raises); ``<wrapper>.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+from .idw import _sqrt_rn, grid_points, round_up
+from .idw_factored_kernel import first_min_index
+
+# above this point count the JAX package switches to its chunked kernel
+P_SINGLE_PASS_MAX = 4096
+MAX_K = 8                  # csrc/idw_knn.cuh kKnnMaxK
+PENALTY = 1e30             # invalid / padding slot, added to d2
+BWD_THREADS = 256          # csrc/idw_knn_bwd.cu kThreads
+# (query chunk x points) elements of one distance tensor in the plain versions:
+# 512 MB in float32 (1 GB for the float64 sqrt), so that they run at full
+# width on the card
+_PLAIN_PAIRS = 1 << 27
+
+
+def prep_points(points_xyz: torch.Tensor, values: torch.Tensor,
+                valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, P, 3) points, (B, P) values and validity -> pts4 (B, Pp, 4) rows
+    (x, y, z, penalty) and vals (B, Pp) float32, Pp = round_up(max(P, 128),
+    128); padding rows are (0, 0, 0, 1e30) with value 0. Differentiable in the
+    values."""
+    B, P, _ = points_xyz.shape
+    Pp = round_up(max(P, 128), 128)
+    penalty = torch.where(valid, 0.0, PENALTY).to(torch.float32)
+    pts4 = torch.cat([points_xyz.to(torch.float32), penalty[..., None]], dim=-1)
+    pts4 = F.pad(pts4, (0, 0, 0, Pp - P))
+    pts4[:, P:, 3] = PENALTY
+    return pts4.contiguous(), F.pad(values.to(torch.float32), (0, Pp - P))
+
+
+@functools.lru_cache(maxsize=8)
+def _grid(D: int, H: int, W: int, device: str) -> torch.Tensor:
+    """(Q, 3) query coordinates (``grid_points``) on ``device``."""
+    return torch.from_numpy(grid_points(D, H, W)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _grid_axes(D: int, H: int, W: int, device: str):
+    """(x (W,), y (H,), z (D,)) linspace coordinates: query q = (z*H + y)*W + x
+    sits at (x[q % W], y[(q / W) % H], z[q / (H W)]), as in ``grid_points``."""
+    g = grid_points(D, H, W)
+    return tuple(torch.from_numpy(a.copy()).to(device)
+                 for a in (g[:W, 0], g[:H * W:W, 1], g[::H * W, 2]))
+
+
+def _weight(d: torch.Tensor, rho: float, tau: float) -> torch.Tensor:
+    """IDW weight of a selected distance (``_weight_from_d`` of the TPU
+    kernels): an invalid slot's 1e15 gives ~1e-30, effectively zero."""
+    if abs(rho - 2.0) < 1e-6:
+        invd = 1.0 / (d + tau)
+        return invd * invd
+    return 1.0 / torch.pow(d + tau, rho)
+
+
+def _select_chunks(pts4_b: torch.Tensor, grid: torch.Tensor, k: int):
+    """The k nearest points of every query, chunk by chunk of queries: yields
+    (lo, hi, d (n, k), idx (n, k) int64), rounds in order (ascending d, lowest
+    index first on ties)."""
+    Pp = pts4_b.shape[0]
+    px, py, pz, pen = (c[None, :] for c in pts4_b.unbind(-1))
+    col = torch.arange(Pp, device=pts4_b.device, dtype=torch.int32)[None, :]
+    step = max(1, _PLAIN_PAIRS // Pp)
+    for lo in range(0, grid.shape[0], step):
+        g = grid[lo:lo + step]
+        dx, dy, dz = g[:, 0:1] - px, g[:, 1:2] - py, g[:, 2:3] - pz
+        d = _sqrt_rn(((dx * dx + dy * dy) + dz * dz) + pen)
+        del dx, dy, dz
+        dmin, idx = [], []
+        for _ in range(k):
+            m = d.amin(dim=1, keepdim=True)
+            i = first_min_index(d, m, col.expand_as(d), dim=1, keepdim=True).long()
+            d.scatter_(1, i, float("inf"))
+            dmin.append(m)
+            idx.append(i)
+        yield lo, lo + g.shape[0], torch.cat(dmin, 1), torch.cat(idx, 1)
+
+
+def _forward_plain(pts4, vals, out_shape, k, rho, tau, with_sel):
+    B = pts4.shape[0]
+    grid = _grid(*out_shape, str(pts4.device))
+    Q = grid.shape[0]
+    out = torch.empty((B, Q), dtype=torch.float32, device=pts4.device)
+    sel = torch.empty((B, Q, k), dtype=torch.int32, device=pts4.device) if with_sel else None
+    w_norm = torch.empty((B, Q, k), dtype=torch.float32, device=pts4.device) if with_sel else None
+    for b in range(B):
+        for lo, hi, d, idx in _select_chunks(pts4[b], grid, k):
+            w = _weight(d, rho, tau)
+            v = vals[b][idx]
+            w_sum = torch.zeros_like(w[:, 0])
+            wv_sum = torch.zeros_like(w[:, 0])
+            for r in range(k):
+                w_sum = w_sum + w[:, r]
+                wv_sum = wv_sum + w[:, r] * v[:, r]
+            out[b, lo:hi] = wv_sum / (w_sum + 1e-12)
+            if with_sel:
+                sel[b, lo:hi] = idx.to(torch.int32)
+                w_norm[b, lo:hi] = w / (w_sum + 1e-12)[:, None]
+    return out, (None if sel is None else (sel, w_norm))
+
+
+def _check(name, pts4, vals_or_g, out_shape, k, max_pp: Optional[int]):
+    cuda_lib.require_cuda(name, pts4, vals_or_g)
+    B, Pp = pts4.shape[0], pts4.shape[1]
+    Q = out_shape[0] * out_shape[1] * out_shape[2]
+    if pts4.shape != (B, Pp, 4) or pts4.data_ptr() % 16:
+        raise ValueError(f"{name}: points must be (B, Pp, 4) rows aligned to 16 "
+                         f"bytes, got {tuple(pts4.shape)}")
+    if not 1 <= k <= MAX_K or B == 0 or Pp == 0 or Pp % 128 or Q == 0:
+        raise ValueError(f"{name}: unsupported k={k}, B={B}, Pp={Pp}, Q={Q}")
+    if max_pp is not None and Pp > max_pp:
+        raise ValueError(f"{name}: Pp={Pp} points exceed its shared-memory "
+                         f"limit of {max_pp}")
+    return B, Pp, Q
+
+
+# -- #8: single pass ----------------------------------------------------------
+
+def idw_knn_single_reference(pts4, vals, out_shape, k: int = 4, rho: float = 2.0,
+                             tau: float = 0.05):
+    """Plain version of :func:`idw_knn_single`: (B, Q) out."""
+    return _forward_plain(pts4, vals, out_shape, k, rho, tau, False)[0]
+
+
+def idw_knn_single(pts4: torch.Tensor, vals: torch.Tensor,
+                   out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
+                   tau: float = 0.05) -> torch.Tensor:
+    """(B, Q) IDW of the (D, H, W) grid from pts4 (B, Pp, 4) and vals (B, Pp)
+    of :func:`prep_points`, Pp <= 4096, all points of a sample in shared
+    memory."""
+    if pts4.device.type == "cpu":
+        return idw_knn_single_reference(pts4, vals, out_shape, k, rho, tau)
+    name = "idw_knn_single"
+    B, Pp, Q = _check(name, pts4, vals, out_shape, k, P_SINGLE_PASS_MAX)
+    if vals.shape != (B, Pp):
+        raise ValueError(f"{name}: values {tuple(vals.shape)}, expected {(B, Pp)}")
+    lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
+    out = torch.empty((B, Q), device=pts4.device, dtype=torch.float32)
+    with torch.cuda.device(pts4.device):
+        rc = cuda_lib.library().p2i_idw_knn_single(
+            pts4.data_ptr(), vals.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            lz.data_ptr(), out.data_ptr(), B, Pp, *out_shape, k, float(rho),
+            float(tau), int(abs(rho - 2.0) < 1e-6), cuda_lib.stream_of(pts4))
+    cuda_lib.check(rc, name)
+    idw_knn_single.launches += 1
+    return out
+
+
+idw_knn_single.launches = 0
+
+
+# -- #9: points streamed in tiles ---------------------------------------------
+
+def idw_knn_chunked_reference(pts4, vals, out_shape, k: int = 4, rho: float = 2.0,
+                              tau: float = 0.05, with_sel: bool = True):
+    """Plain version of :func:`idw_knn_chunked`: (out (B, Q), (sel_idx (B, Q, k)
+    int32, w_norm (B, Q, k)) or None), as ``_idw_forward_chunked`` returns
+    them. The global lexicographic (d, index) top-k equals the TPU kernel's
+    per-chunk top-k followed by its merge."""
+    return _forward_plain(pts4, vals, out_shape, k, rho, tau, with_sel)
+
+
+def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
+                    out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
+                    tau: float = 0.05, with_sel: bool = False):
+    """(out (B, Q), selection or None) for any number of points: each query's
+    top-k runs across all tiles of points in registers. ``with_sel`` also
+    returns sel_idx (B, Q, k) int32 and w_norm (B, Q, k), the backward's
+    scatter (what a training forward needs)."""
+    if pts4.device.type == "cpu":
+        return idw_knn_chunked_reference(pts4, vals, out_shape, k, rho, tau, with_sel)
+    name = "idw_knn_chunked"
+    B, Pp, Q = _check(name, pts4, vals, out_shape, k, None)
+    if vals.shape != (B, Pp):
+        raise ValueError(f"{name}: values {tuple(vals.shape)}, expected {(B, Pp)}")
+    lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
+    dev = pts4.device
+    out = torch.empty((B, Q), device=dev, dtype=torch.float32)
+    sel = w_norm = None
+    if with_sel:
+        sel = torch.empty((B, Q, k), device=dev, dtype=torch.int32)
+        w_norm = torch.empty((B, Q, k), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        rc = cuda_lib.library().p2i_idw_knn_chunked(
+            pts4.data_ptr(), vals.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            lz.data_ptr(), out.data_ptr(), 0 if sel is None else sel.data_ptr(),
+            0 if w_norm is None else w_norm.data_ptr(), B, Pp, *out_shape, k,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6),
+            cuda_lib.stream_of(pts4))
+    cuda_lib.check(rc, name)
+    idw_knn_chunked.launches += 1
+    return out, (None if sel is None else (sel, w_norm))
+
+
+idw_knn_chunked.launches = 0
+
+
+def scatter_selection(sel_idx: torch.Tensor, w_norm: torch.Tensor,
+                      g: torch.Tensor, Pp: int) -> torch.Tensor:
+    """d_values (B, Pp) of the chunked forward: ``w_norm * g`` added into the
+    selected points (``index_add_``: its sum order is not fixed on the card)."""
+    B, Q, k = sel_idx.shape
+    flat = (sel_idx.long() + Pp * torch.arange(B, device=g.device)[:, None, None])
+    dv = torch.zeros((B * Pp,), dtype=torch.float32, device=g.device)
+    dv.index_add_(0, flat.reshape(-1), (w_norm * g[:, :, None]).reshape(-1))
+    return dv.reshape(B, Pp)
+
+
+# -- #10: backward of the single pass -----------------------------------------
+
+def idw_knn_bwd_reference(pts4, g, out_shape, k: int = 4, rho: float = 2.0,
+                          tau: float = 0.05):
+    """Plain version of :func:`idw_knn_bwd`: the selection recomputed, each
+    selected point gets w * (g / (sum(w) + 1e-12)) (the TPU kernel's order of
+    operations), summed with ``index_add_``. Returns (B, Pp)."""
+    B, Pp, _ = pts4.shape
+    grid = _grid(*out_shape, str(pts4.device))
+    dv = torch.zeros((B, Pp), dtype=torch.float32, device=pts4.device)
+    for b in range(B):
+        for lo, hi, d, idx in _select_chunks(pts4[b], grid, k):
+            w = _weight(d, rho, tau)
+            w_sum = torch.zeros_like(w[:, 0])
+            for r in range(k):
+                w_sum = w_sum + w[:, r]
+            scale = g[b, lo:hi] / (w_sum + 1e-12)
+            dv[b].index_add_(0, idx.reshape(-1), (w * scale[:, None]).reshape(-1))
+    return dv
+
+
+def idw_knn_bwd(pts4: torch.Tensor, g: torch.Tensor,
+                out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
+                tau: float = 0.05) -> torch.Tensor:
+    """d_values (B, Pp) of :func:`idw_knn_single` from its output cotangent
+    g (B, Q); the selection is recomputed, not saved. Pp <= 4096."""
+    if pts4.device.type == "cpu":
+        return idw_knn_bwd_reference(pts4, g, out_shape, k, rho, tau)
+    name = "idw_knn_bwd"
+    B, Pp, Q = _check(name, pts4, g, out_shape, k, P_SINGLE_PASS_MAX)
+    if g.shape != (B, Q):
+        raise ValueError(f"{name}: cotangent {tuple(g.shape)}, expected {(B, Q)}")
+    lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
+    # query strips a block walks, so that its (Pp,) accumulation tile is
+    # zeroed and written once for up to 8 x 256 queries
+    iters = min(8, -(-Q // BWD_THREADS))
+    nblk = -(-Q // (BWD_THREADS * iters))
+    parts = torch.empty((nblk, B, Pp), device=g.device, dtype=torch.float32)
+    out = torch.empty((B, Pp), device=g.device, dtype=torch.float32)
+    with torch.cuda.device(g.device):
+        rc = cuda_lib.library().p2i_idw_knn_bwd(
+            pts4.data_ptr(), g.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            lz.data_ptr(), parts.data_ptr(), out.data_ptr(), B, Pp, *out_shape, k,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), iters, nblk,
+            cuda_lib.stream_of(g))
+    cuda_lib.check(rc, name)
+    idw_knn_bwd.launches += 1
+    return out
+
+
+idw_knn_bwd.launches = 0
+
+
+# -- the differentiable op ----------------------------------------------------
+
+class _IDWKnn(torch.autograd.Function):
+    """Forward: #8 (single) or #9 (chunked, keeping its selection when the
+    values need a gradient). Backward: #10, or the scatter of the forward's
+    selection. The points get no gradient, as in the JAX package's VJP."""
+
+    @staticmethod
+    def forward(ctx, pts4, vals, out_shape, k, rho, tau, single):
+        ctx.args = (out_shape, k, rho, tau, single, vals.shape[1])
+        if single:
+            ctx.save_for_backward(pts4)
+            return idw_knn_single(pts4, vals, out_shape, k, rho, tau)
+        out, sel = idw_knn_chunked(pts4, vals, out_shape, k, rho, tau,
+                                   with_sel=ctx.needs_input_grad[1])
+        if sel is not None:
+            ctx.save_for_backward(*sel)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out_shape, k, rho, tau, single, Pp = ctx.args
+        if not ctx.needs_input_grad[1]:
+            return (None,) * 7
+        g = g.contiguous()
+        if single:
+            (pts4,) = ctx.saved_tensors
+            dv = idw_knn_bwd(pts4, g, out_shape, k, rho, tau)
+        else:
+            dv = scatter_selection(*ctx.saved_tensors, g, Pp)
+        return None, dv, None, None, None, None, None
+
+
+def idw_knn(points_xyz: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
+            out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
+            tau: float = 0.05) -> torch.Tensor:
+    """(B, D, H, W) IDW of points (B, P, 3), values and validity (B, P):
+    single pass for P <= :data:`P_SINGLE_PASS_MAX`, else chunked.
+    Differentiable in ``values``."""
+    B, P, _ = points_xyz.shape
+    pts4, vals = prep_points(points_xyz.detach(), values, valid)
+    out = _IDWKnn.apply(pts4, vals, tuple(out_shape), k, rho, tau,
+                        P <= P_SINGLE_PASS_MAX)
+    return out.reshape(B, *out_shape)

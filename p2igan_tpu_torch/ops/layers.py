@@ -91,30 +91,28 @@ class AttentionBlock(nn.Module):
 
 
 class InputBlock(nn.Module):
-    """Temporal attention + IDW k-NN densification (reference layer.py:307-361)
-    on the factored path: masks that are constant across frames (sti, stis).
+    """Temporal attention + IDW k-NN densification (reference layer.py:307-361).
+    x/mask: (B, D, H, W) with D = C*T; returns the densified (B, D, H, W) field.
 
-    Gauge values are gathered first, so the attention runs on (B, G, D)
-    instead of every pixel. With ``shared_batch_mask`` every sample shares one
-    spatial mask (stis gauge files, sliding windows of one event): the gauge
-    selection is computed once per batch, or hoisted by the caller
-    (``prepared``). Without it (sti: a mask per sample) every sample selects
-    from its own gauges, every forward. x/mask: (B, D, H, W) with D = C*T;
-    returns the densified (B, D, H, W) field."""
+    ``factored`` (masks constant across frames: sti, stis): gauge values are
+    gathered first, so the attention runs on (B, G, D) instead of every pixel.
+    With ``shared_batch_mask`` every sample shares one spatial mask (stis gauge
+    files, sliding windows of one event): the gauge selection is computed once
+    per batch, or hoisted by the caller (``prepared``). Without it (sti: a mask
+    per sample) every sample selects from its own gauges, every forward.
+
+    Otherwise (masks that vary per frame: stin, fi, nowcasting) the attention
+    runs on every pixel's D-vector, the observed voxels of the full mask are
+    gathered into ``max_points`` slots and densified by the generic IDW."""
 
     def __init__(self, channels: int, depth: int = 2, k: int = 4,
                  rho: float = 2.0, tau: float = 0.05, max_points: int = 2048,
-                 factored: bool = True, shared_batch_mask: bool = True,
+                 factored: bool = False, shared_batch_mask: bool = False,
                  frames: Optional[int] = None, device=None):
         super().__init__()
-        if not factored:
-            raise NotImplementedError(
-                "InputBlock: the generic IDW for masks that vary per frame "
-                "(stin, fi, nowcasting: extract_points + idw_3d_knn) is not "
-                "ported; only the factored IDW of frame-constant masks is "
-                "(sti per sample, stis shared)")
         self.k, self.rho, self.tau = k, rho, tau
         self.max_points = max_points
+        self.factored = factored
         self.shared_batch_mask = shared_batch_mask
         self.frames = frames
         self.layers = nn.ModuleList(AttentionBlock(channels, device=device)
@@ -127,16 +125,27 @@ class InputBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 prepared=None) -> torch.Tensor:
-        from .idw import (factored_apply_gauges, factored_apply_gauges_batch,
-                          factored_prepare_full)
+        from .idw import (extract_points, factored_apply_gauges,
+                          factored_apply_gauges_batch, factored_prepare_full,
+                          idw_3d_knn)
 
         B, D, H, W = x.shape
-        if prepared is not None and not self.shared_batch_mask:
+        if prepared is not None and not (self.factored and self.shared_batch_mask):
             # only the shared-mask path can consume a hoisted gauge selection;
             # dropping it silently would hide a table built for another mask
             raise ValueError(
-                "InputBlock got `prepared` but shared_batch_mask is not set: "
-                "a per-sample mask computes its own gauge selection")
+                "InputBlock got `prepared` but factored+shared_batch_mask is "
+                f"not set (factored={self.factored}, shared_batch_mask="
+                f"{self.shared_batch_mask}): a mask of its own computes its "
+                "own selection")
+        if not self.factored:
+            h = x.permute(0, 2, 3, 1)                                # (B, H, W, D)
+            for layer in self.layers:
+                h = layer(h)
+            vals = h.permute(0, 3, 1, 2).to(torch.float32)
+            points, values, valid = extract_points(mask, vals, self.max_points)
+            return idw_3d_knn(points, values, valid, (D, H, W), k=self.k,
+                              rho=self.rho, tau=self.tau)
         max_gauges = self.gauge_budget(self.max_points, self.frames or D)
         x_pix = x.reshape(B, D, H * W)
         if self.shared_batch_mask:

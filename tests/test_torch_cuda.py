@@ -329,7 +329,8 @@ def test_sti_generator_gradients_on_the_card(dev):
     grads = {}
     for d in ("cpu", dev):
         gen = P2IGenerator(H=32, W=32, length=4, num_res=1, base_channels=16,
-                           idw_max_points=512, idw_shared_batch_mask=False,
+                           idw_max_points=512, idw_factored=True,
+                           idw_shared_batch_mask=False,
                            generator=torch.Generator().manual_seed(0), device=d)
         m = torch.from_numpy(masks).to(d)
         f = torch.from_numpy(frames).to(d)
@@ -599,3 +600,177 @@ def test_folded_simple_generator_card_equals_cpu(dev, dec2_fused):
     assert (enc0_conv3d_leaky.launches - before[0],
             conv3d_cout1_sigmoid.launches - before[1]) == (1, int(dec2_fused))
     assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+# -- the generic IDW k-NN (csrc/idw_knn.cu, idw_knn_bwd.cu) -------------------
+
+def _knn_inputs(kind, B, shape, P, n_valid, dev, seed=0):
+    """prep_points of B samples: random points, or points on the query
+    lattice (the observed voxels of a random mask: every unobserved frame sees
+    exact +-z ties); the first ``n_valid`` slots valid."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+    from p2igan_tpu_torch.ops.idw import extract_points
+
+    rng = np.random.default_rng(seed)
+    if kind == "lattice":
+        D, H, W = shape
+        mask = np.zeros((B, D * H * W), np.float32)
+        for b in range(B):
+            mask[b, rng.choice(D * H * W, P, replace=False)] = 1.0
+        pts = extract_points(torch.from_numpy(mask.reshape(B, D, H, W)),
+                             torch.zeros(B, D, H, W), P)[0]
+    else:
+        pts = torch.from_numpy(rng.random((B, P, 3)).astype(np.float32))
+    vals = torch.from_numpy(rng.normal(size=(B, P)).astype(np.float32))
+    valid = torch.from_numpy(np.arange(P)[None].repeat(B, 0) < n_valid)
+    pts4, pv = IK.prep_points(pts, vals * valid, valid)
+    return pts4.to(dev), pv.to(dev)
+
+
+KNN_CASES = [("random", None), ("lattice", None), ("random", 2), ("random", 0)]
+
+
+@pytest.mark.parametrize("kind,n_valid", KNN_CASES)
+@pytest.mark.parametrize("B,shape,P", [(3, (2, 17, 17), 300), (2, (16, 128, 128), 4096)])
+def test_idw_knn_single_kernel_bitwise(dev, kind, n_valid, B, shape, P):
+    """Kernel #8 against its plain version on the card: bitwise (one
+    arithmetic, every rounding spelled out), ties, fewer than k valid points
+    and an empty sample included."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    pts4, pv = _knn_inputs(kind, B, shape, P, P if n_valid is None else n_valid, dev)
+    before = IK.idw_knn_single.launches
+    got = IK.idw_knn_single(pts4, pv, shape)
+    assert IK.idw_knn_single.launches == before + 1
+    want = IK.idw_knn_single_reference(pts4, pv, shape)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if n_valid == 0:
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("kind,n_valid", KNN_CASES)
+@pytest.mark.parametrize("B,shape,P", [(2, (4, 40, 40), 4596), (1, (16, 128, 128), 65536)])
+def test_idw_knn_chunked_kernel_bitwise(dev, kind, n_valid, B, shape, P):
+    """Kernel #9 against its plain version on the card: out, sel_idx and
+    w_norm bitwise; without the selection it writes the same output."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    pts4, pv = _knn_inputs(kind, B, shape, P, P if n_valid is None else n_valid, dev)
+    got, (sel, w_norm) = IK.idw_knn_chunked(pts4, pv, shape, with_sel=True)
+    want, (rsel, rw) = IK.idw_knn_chunked_reference(pts4, pv, shape)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(sel, rsel)
+    assert torch.equal(w_norm.view(torch.int32), rw.view(torch.int32))
+    before = IK.idw_knn_chunked.launches
+    alone, none = IK.idw_knn_chunked(pts4, pv, shape)
+    assert none is None and IK.idw_knn_chunked.launches == before + 1
+    assert torch.equal(alone, got)
+
+
+@pytest.mark.parametrize("kind", ["random", "lattice"])
+def test_idw_knn_chunked_equals_single(dev, kind):
+    """#9 at P <= 4096 gives #8's output bit for bit (one selection)."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    shape = (16, 64, 64)
+    pts4, pv = _knn_inputs(kind, 3, shape, 3200, 3100, dev, seed=1)
+    out, _ = IK.idw_knn_chunked(pts4, pv, shape)
+    assert torch.equal(out, IK.idw_knn_single(pts4, pv, shape))
+
+
+@pytest.mark.parametrize("kind,n_valid", KNN_CASES)
+@pytest.mark.parametrize("B,shape,P", [(3, (2, 17, 17), 300), (2, (16, 128, 128), 3200)])
+def test_idw_knn_bwd_kernel(dev, kind, n_valid, B, shape, P):
+    """Kernel #10 against its plain version: each sample's max abs error <=
+    1e-5 x the largest sum of |terms| a point of that sample receives (the
+    backward of |g|): both sum float32 terms in orders of their own
+    (shared-memory atomics and per-block partials, index_add_), and with fewer
+    than k valid points one point takes a term from every query. The linearity
+    identity <dv, v> == <g, f(v)> for #10 and for the chunked scatter
+    backward, within 1e-5 x <|g|, f(|v|)>."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    pts4, pv = _knn_inputs(kind, B, shape, P, P if n_valid is None else n_valid, dev)
+    Q = shape[0] * shape[1] * shape[2]
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(B, Q))
+                         .astype(np.float32)).to(dev)
+    before = IK.idw_knn_bwd.launches
+    got = IK.idw_knn_bwd(pts4, g, shape)
+    assert IK.idw_knn_bwd.launches == before + 1
+    want = IK.idw_knn_bwd_reference(pts4, g, shape)
+    mass = IK.idw_knn_bwd_reference(pts4, g.abs(), shape).amax(dim=1, keepdim=True)
+    assert bool((mass > 0).all())
+    assert bool(((got - want).abs() <= 1e-5 * mass).all())
+    out = IK.idw_knn_single(pts4, pv, shape)
+    _, (sel, w_norm) = IK.idw_knn_chunked(pts4, pv, shape, with_sel=True)
+    scat = IK.scatter_selection(sel, w_norm, g, pts4.shape[1])
+    rhs = float((g.double() * out.double()).sum())
+    bound = 1e-5 * float((g.abs().double() *
+                          IK.idw_knn_single(pts4, pv.abs(), shape).double()).sum())
+    for dv in (got, scat):
+        lhs = float((dv.double() * pv.double()).sum())
+        assert abs(lhs - rhs) <= bound
+
+
+def test_idw_knn_wrappers_validate(dev):
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    pts4, pv = _knn_inputs("random", 2, (2, 8, 8), 5000, 5000, dev)
+    g = torch.zeros(2, 128, device=dev)
+    for fn in (IK.idw_knn_single, IK.idw_knn_bwd):
+        with pytest.raises(ValueError, match="shared-memory"):   # Pp > 4096
+            fn(pts4, pv if fn is IK.idw_knn_single else g, (2, 8, 8))
+    small, sv = pts4[:, :256].contiguous(), pv[:, :256].contiguous()
+    with pytest.raises(ValueError, match="unsupported k"):
+        IK.idw_knn_chunked(small, sv, (2, 8, 8), k=9)
+    with pytest.raises(TypeError):
+        IK.idw_knn_single(small.double(), sv.double(), (2, 8, 8))
+    with pytest.raises(ValueError):
+        IK.idw_knn_single(small, sv.cpu(), (2, 8, 8))                    # mixed devices
+    with pytest.raises(ValueError):
+        IK.idw_knn_single(small[:, :, :3].contiguous(), sv, (2, 8, 8))  # rows of 3
+    with pytest.raises(ValueError):
+        IK.idw_knn_chunked(small, sv[:1], (2, 8, 8))                    # batch mismatch
+    with pytest.raises(ValueError):
+        IK.idw_knn_bwd(small, g[:, :64], (2, 8, 8))                     # cotangent shape
+
+
+@pytest.mark.parametrize("P", [2048, 4480])
+def test_generic_generator_gradients_on_the_card(dev, P):
+    """A small generator on per-frame masks, forward and backward on the card
+    (P <= 4096: #8 and #10; above: #9 and its scatter): every parameter gets a
+    gradient, the output matches the CPU path within 1e-5 and input.*'s
+    gradients within 1e-4 x max."""
+    from p2igan_tpu_torch.data.masks import create_mask_np
+    from p2igan_tpu_torch.models import P2IGenerator
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    rng = np.random.default_rng(8)
+    kind, kw = ("nowcasting", {"keep": 2}) if P == 2048 else ("stin", {"keep": 4,
+                                                                       "block_sizes": [4]})
+    masks = np.stack([create_mask_np((8, 32, 32, 1), rng, kind, **kw) for _ in range(3)])
+    frames = rng.random(masks.shape).astype(np.float32)
+    outs, grads = {}, {}
+    for d in ("cpu", dev):
+        gen = P2IGenerator(H=32, W=32, length=8, num_res=1, base_channels=32,
+                           idw_max_points=P,
+                           generator=torch.Generator().manual_seed(0), device=d)
+        m = torch.from_numpy(masks).to(d)
+        f = torch.from_numpy(frames).to(d)
+        before = (IK.idw_knn_single.launches, IK.idw_knn_chunked.launches,
+                  IK.idw_knn_bwd.launches)
+        out = gen(f * m, m)
+        (out - f).abs().mean().backward()
+        after = (IK.idw_knn_single.launches, IK.idw_knn_chunked.launches,
+                 IK.idw_knn_bwd.launches)
+        want = (0, 0, 0) if d == "cpu" else ((1, 0, 1) if P <= 4096 else (0, 1, 0))
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        outs[str(d)] = out.detach().cpu()
+        grads[str(d)] = {n: p.grad.cpu() for n, p in gen.named_parameters()}
+        assert all(p.grad is not None for p in gen.parameters())
+    assert float((outs["cpu"] - outs[str(dev)]).abs().max()) <= 1e-5
+    for name, g in grads["cpu"].items():
+        if name.startswith("input."):
+            assert float(g.abs().max()) > 0
+            assert float((g - grads[str(dev)][name]).abs().max()) <= \
+                1e-4 * float(g.abs().max()), name

@@ -195,8 +195,9 @@ def test_one_gan_step_matches_jax(fused):
     masked = frames * masks
     prep = factored_prepare_full(torch.from_numpy(masks[0, 0, :, :, 0]), 128)
 
-    kw = dict(H=HW, W=HW, length=T, num_res=1, base_channels=BASE, idw_max_points=128)
-    jgen = JaxGenerator(idw_factored=True, idw_shared_batch_mask=True, **kw)
+    kw = dict(H=HW, W=HW, length=T, num_res=1, base_channels=BASE, idw_max_points=128,
+              idw_factored=True, idw_shared_batch_mask=True)
+    jgen = JaxGenerator(**kw)
     gvars = dict(jgen.init(jax.random.key(0), jnp.asarray(masked), jnp.asarray(masks)))
     jdisc, dvars = _warm_disc(seed=1, n_iter=0)
     cfg = {"lr": 1e-4, "beta1": 0.0, "beta2": 0.99}

@@ -48,7 +48,7 @@ def _events(seed, E, ev_t, n_gauges=1, shared=True):
 @pytest.fixture(scope="module")
 def models():
     sd = reference_state(seed=7)
-    jgen = JaxGenerator(idw_factored=True, idw_shared_batch_mask=True, **GEN_KW)
+    jgen = JaxGenerator(**GEN_KW)
     jvars = TI.import_p2igan_generator(sd, num_res=GEN_KW["num_res"])
     jgen, jvars = jgen.fold_for_inference(jvars)
     tgen = P2IGenerator(**GEN_KW)
@@ -150,7 +150,8 @@ def _serving_tree(tmp_path, n_events=2, ev_t=10):
         },
         "train": {"num_workers": 1},
     }
-    gen = P2IGenerator(H=HW, W=HW, length=T, base_channels=16,
+    gen = P2IGenerator(H=HW, W=HW, length=T, base_channels=16, idw_factored=True,
+                       idw_shared_batch_mask=True,
                        generator=torch.Generator().manual_seed(0))
     torch.save(gen.state_dict(), tmp_path / "gen.pt")
     return cfg

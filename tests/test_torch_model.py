@@ -23,7 +23,7 @@ from p2igan_tpu_torch.training.checkpoint import (load_generator_state,
 
 T, BASE, HW, NUM_RES = 4, 16, 16, 1
 GEN_KW = dict(H=HW, W=HW, length=T, num_res=NUM_RES, base_channels=BASE,
-              idw_max_points=128)
+              idw_max_points=128, idw_factored=True, idw_shared_batch_mask=True)
 
 
 def reference_state(seed=0, t=T, base=BASE, h=HW, w=HW, num_res=NUM_RES):
@@ -72,7 +72,7 @@ def torch_state(sd):
 def jax_outputs():
     sd = reference_state()
     variables = TI.import_p2igan_generator(sd, num_res=NUM_RES)
-    gen = JaxGenerator(idw_factored=True, idw_shared_batch_mask=True, **GEN_KW)
+    gen = JaxGenerator(**GEN_KW)
     masked, masks = shared_mask_inputs()
     out = np.asarray(gen.apply(variables, jnp.asarray(masked), jnp.asarray(masks)))
     egen, evars = gen.fold_for_inference(variables)
@@ -159,13 +159,13 @@ def test_seeded_init_is_reproducible():
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="generic IDW"):
-        InputBlock(4, factored=False)
-    # the per-sample factored block (sti masks) is ported: it builds, and
-    # refuses a hoisted selection, which only a shared mask can use
-    block = InputBlock(4, factored=True, shared_batch_mask=False, max_points=128)
-    with pytest.raises(ValueError, match="prepared"):
-        block(torch.zeros(1, 4, 8, 8), torch.zeros(1, 4, 8, 8), prepared=(None,) * 3)
+    # the per-sample factored block (sti masks) and the generic block (masks
+    # that vary per frame) are ported: they build, and refuse a hoisted
+    # selection, which only a shared mask can use
+    for factored in (True, False):
+        block = InputBlock(4, factored=factored, shared_batch_mask=False, max_points=128)
+        with pytest.raises(ValueError, match="prepared"):
+            block(torch.zeros(1, 4, 8, 8), torch.zeros(1, 4, 8, 8), prepared=(None,) * 3)
     # simple is ported: the registry builds it, by name and as the default
     for cfg in ({"model": {"name": "simple", "base_channels": 4}},
                 {"model": {"base_channels": 4}}):

@@ -125,9 +125,9 @@ def test_from_config_builds_sti_and_sizes_the_budget_as_jax(mask, points, slots)
 
 def test_from_config_other_mask_types_still_name_the_generic_idw():
     """A denser test split raises the budget; a mask that varies per frame
-    needs the generic IDW, which is not ported."""
+    builds the generic IDW, as in JAX."""
     cfg = _cfg({"type": "sti", "block_sizes": [10]}, test_mask={"block_sizes": [4]})
     assert P2IGenerator.from_config(cfg).idw_max_points == 17536
     for mtype in ("stin", "fi", "nowcasting"):
-        with pytest.raises(NotImplementedError, match="generic IDW"):
-            P2IGenerator.from_config(_cfg({"type": mtype}))
+        gen = P2IGenerator.from_config(_cfg({"type": mtype}))
+        assert not gen.idw_factored and not gen.input.factored

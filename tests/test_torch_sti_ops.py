@@ -315,7 +315,7 @@ def test_input_block_per_sample_matches_jax():
     jgrads = jax.grad(lambda p: jnp.sum(jblock.apply(
         {"params": p}, jnp.asarray(x), jnp.asarray(masks)) * cot))(jvars["params"])
 
-    block = InputBlock(D, max_points=D * G, shared_batch_mask=False)
+    block = InputBlock(D, max_points=D * G, factored=True, shared_batch_mask=False)
     _load_block(block, jvars["params"])
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
     mt = torch.from_numpy(masks).permute(0, 3, 1, 2).contiguous()
@@ -342,8 +342,8 @@ def test_input_block_per_sample_equals_shared_on_a_shared_mask():
     mask = _random(rng, 10)
     masks = torch.from_numpy(np.broadcast_to(mask[None, None], (B, D, H, W)).copy())
     x = torch.from_numpy(rng.random((B, D, H, W)).astype(np.float32)) * masks
-    a = InputBlock(D, max_points=D * G, shared_batch_mask=False)
-    b = InputBlock(D, max_points=D * G, shared_batch_mask=True)
+    a = InputBlock(D, max_points=D * G, factored=True, shared_batch_mask=False)
+    b = InputBlock(D, max_points=D * G, factored=True, shared_batch_mask=True)
     a.layers[0].reset_parameters(torch.Generator().manual_seed(0))
     a.layers[1].reset_parameters(torch.Generator().manual_seed(1))
     b.load_state_dict(a.state_dict())

@@ -1,7 +1,9 @@
 """PyTorch port vs the JAX package: training p2igan on per-sample sti masks.
 
 One hinge-GAN step from identical state against the JAX step, and the port's
-trainer on an sti config (no hoist, both input pipelines). Tolerances are
+trainer on an sti config (no hoist, both input pipelines). The step on stin
+masks (the generic IDW) is here too: its un-jitted JAX step shares the sti
+step's one-time compilation of every operation. Tolerances are
 those of ``tests/test_torch_gan.py`` for the stis step: losses rtol 1e-4,
 gradients rtol 1e-4 with atol 1e-4 x max|grad|, spectral u rtol 1e-5.
 """
@@ -23,6 +25,8 @@ from p2igan_tpu_torch.training import steps as tsteps
 from p2igan_tpu_torch.training.trainer import Trainer
 
 from test_torch_gan import BASE, HW, T, _capture, _port_disc, _warm_disc
+from test_torch_idw_generic_model import _budget, per_frame_masks
+from test_torch_idw_generic_model import small_jax_idw_chunk  # noqa: F401  (fixture)
 from test_torch_sti_model import sti_inputs
 from test_torch_trainer import _record_batches
 
@@ -103,6 +107,72 @@ def test_one_sti_gan_step_matches_jax(fused):
                                    err_msg=name)
 
 
+@pytest.mark.usefixtures("small_jax_idw_chunk")
+def test_one_stin_gan_step_matches_jax():
+    """One hinge-GAN step (base 16, T=4, 32x32, batch 2, every sample under
+    its own stin mask: 2 frames fully observed, then a block-4 jittered grid;
+    2304 points, through the generic IDW: the plain versions of the single
+    pass #8 forward and #10 backward). The JAX step runs un-jitted, as the sti
+    step above: jitted, XLA contracts the distance sums into FMAs and flips
+    the ties that the dense frames put on the query lattice; updated
+    parameters atol 1e-2 x lr where the gradient is not tiny."""
+    masks = per_frame_masks("stin", 2, T, HW, seed=11)
+    frames = np.random.default_rng(11).random((2, T, HW, HW, 1), dtype=np.float32)
+    masked = frames * masks
+    kw = dict(H=HW, W=HW, length=T, num_res=1, base_channels=BASE,
+              idw_max_points=_budget("stin", T, HW))
+    jgen = JaxGenerator(**kw)
+    gvars = dict(jgen.init(jax.random.key(0), jnp.asarray(masked), jnp.asarray(masks)))
+    jdisc, dvars = _warm_disc(seed=1, n_iter=0)
+    cfg = {"lr": 1e-4, "beta1": 0.0, "beta2": 0.99}
+    jopt_g = optax.chain(_capture(), jsteps.make_optimizer(cfg))
+    jopt_d = optax.chain(_capture(), jsteps.make_optimizer(cfg))
+    gp, dp = gvars.pop("params"), dvars["params"]
+    dextra = {k: v for k, v in dvars.items() if k != "params"}
+    state = jsteps.TrainState(step=jnp.zeros((), jnp.int32), gen_params=gp,
+                              gen_extra=gvars, opt_g=jopt_g.init(gp),
+                              disc_params=dp, disc_extra=dextra, opt_d=jopt_d.init(dp))
+    step_kw = dict(use_gan=True, gan_loss_type="hinge", adversarial_weight=0.01,
+                   k1_alpha=0.05, fused_disc_forward=True)
+    jstep = jsteps.build_train_step(jgen, jdisc, jopt_g, jopt_d, donate=False, **step_kw)
+    new_state, jm = jstep.__wrapped__(state, jnp.asarray(frames), jnp.asarray(masked),
+                                      jnp.asarray(masks))
+
+    gen = P2IGenerator(**kw)
+    assert not gen.idw_factored
+    gen.load_state_dict(state_dict_from_jax({"params": gp}))
+    disc = _port_disc(dvars)
+    opt_g = tsteps.make_optimizer(cfg, gen.parameters())
+    opt_d = tsteps.make_optimizer(cfg, disc.parameters())
+    step = tsteps.build_train_step(gen, disc, opt_g, opt_d, **step_kw)
+    m = step(torch.from_numpy(frames), torch.from_numpy(masked), torch.from_numpy(masks))
+
+    for key in ("loss", "rec_loss", "adv_loss", "dis_loss", "pool", "reg"):
+        np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-4, err_msg=key)
+    for module, jgrads in ((gen, new_state.opt_g[0]), (disc, new_state.opt_d[0])):
+        want = params_from_jax(module, jgrads)
+        for name, p in module.named_parameters():
+            w = want[name].numpy()
+            if p.grad is None:  # alpha3d: unused, JAX's gradient is zero
+                np.testing.assert_array_equal(w, 0.0, err_msg=name)
+                continue
+            np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-4,
+                                       atol=1e-4 * np.abs(w).max(), err_msg=name)
+    for name in ("input.layers.0.conv.weight", "input.layers.1.conv.bias"):
+        assert float(dict(gen.named_parameters())[name].grad.abs().max()) > 0, name
+    want = params_from_jax(gen, new_state.gen_params)
+    for name, p in gen.named_parameters():
+        g = p.grad.numpy()
+        sure = np.abs(g) > 1e-3 * np.abs(g).max()
+        np.testing.assert_allclose(p.detach().numpy()[sure], want[name].numpy()[sure],
+                                   rtol=0, atol=1e-2 * cfg["lr"], err_msg=name)
+    for name, uv in new_state.disc_extra["spectral"].items():
+        branch, idx = name.split("_")
+        np.testing.assert_allclose(getattr(disc, branch)[int(idx)].weight_u.numpy(),
+                                   np.asarray(uv["u"]), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+
 def test_overfit_one_sti_batch_reduces_loss():
     """Repeated steps on one fixed batch whose samples carry different sti
     masks drive the weighted-L1 rec loss well down, as
@@ -115,7 +185,8 @@ def test_overfit_one_sti_batch_reduces_loss():
     masks = torch.from_numpy(masks)
     frames = torch.from_numpy(rng.random((2, T, 16, 16, 1), dtype=np.float32))
     gen = P2IGenerator(H=16, W=16, length=T, num_res=1, base_channels=4 * T,
-                       idw_max_points=T * 128, idw_shared_batch_mask=False,
+                       idw_max_points=T * 128, idw_factored=True,
+                       idw_shared_batch_mask=False,
                        generator=torch.Generator().manual_seed(0))
     opt = tsteps.make_optimizer({"lr": 1e-3}, gen.parameters())
     step = tsteps.build_train_step(gen, None, opt, None, use_gan=False, k1_alpha=0.0)

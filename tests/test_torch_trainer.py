@@ -91,7 +91,7 @@ def test_overfit_one_batch_reduces_loss():
                                              (2, T, 16, 16, 1)).copy())
     frames = torch.from_numpy(rng.random((2, T, 16, 16, 1), dtype=np.float32))
     gen = P2IGenerator(H=16, W=16, length=T, num_res=1, base_channels=4 * T,
-                       idw_max_points=128,
+                       idw_max_points=128, idw_factored=True, idw_shared_batch_mask=True,
                        generator=torch.Generator().manual_seed(0))
     opt = tsteps.make_optimizer({"lr": 1e-3}, gen.parameters())
     step = tsteps.build_train_step(gen, None, opt, None, use_gan=False, k1_alpha=0.0,
