@@ -12,7 +12,9 @@
      gauge_topk (gsel equal, gd2 bitwise, on a random 79-gauge mask and a
      tie-heavy regular grid), combine_table_multi (max abs error <= 1e-5 and
      the top gauge slot of every (z, pixel) identical), maxpool2_duplicate
-     (bitwise at the three pyramid shapes);
+     (bitwise at the three pyramid shapes of serving and of training and in
+     its 8-byte form; a call and the device time against the
+     ``max_pool2d`` -> ``repeat_interleave`` chain, its plain version);
    - at the shapes of the GAN training step (p2igan_gan_baseline_gauge.json:
      batch 12): combine_table_multi_bwd (N=12, D=16, HW=16384, G=128, k=4, on
      both masks; max abs error <= 1e-5 x max|plain|, since its sums run in
@@ -101,12 +103,17 @@
    - the single pass (idw_knn_single, #8) at B=12, Q=262144, P=3200 and 4096
      on random points, sti-lattice points, 2 valid points and an empty
      sample: bitwise equal to its plain version on the card;
-   - the tiled pass (idw_knn_chunked, #9) at B=12 under each mask at the
-     config's budget (98304, 67968, 65536 points): out, sel_idx and w_norm
-     bitwise equal to the plain version on all 12 samples at fi and on two
-     under stin and nowcasting, the linearity
-     identity of its scatter backward, the time at B=8; and #9 bitwise equal
-     to #8 at P=3200;
+   - the cell search (idw_knn_chunked, #9) at B=12 under each mask at the
+     config's budget (98304, 67968, 65536 points): the card's cell build
+     against its plain version; out, sel_idx and w_norm bitwise equal to the
+     brute-force plain version on all 12 samples at fi and on two under stin
+     and nowcasting, the linearity identity of its scatter backward, the time
+     at B=8 and of the build alone; the same on seven adversarial samples
+     (ties on both +-z sides, four-way xy ties, 2 valid, empty, one cell,
+     points outside [0, 1], duplicate coordinates); and #9 bitwise equal to #8
+     at P=3200. #8-#10's bound counts the certified pairs (no later than
+     the query's k-th selected point in the (d, index) order: k a query)
+     and prints the all-pairs work beside it;
    - the single-pass backward (idw_knn_bwd, #10) at B=12, P=3200: each
      sample within 1e-5 x the largest sum of |terms| a point of it receives,
      and the linearity identity <dv, v> == <g, f(v)>;
@@ -175,8 +182,9 @@ from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_table_multi_bwd_reference, combine_table_multi_reference,
     combine_table_reference, gauge_topk, gauge_topk_reference)
 from p2igan_tpu_torch.ops.idw_kernel import (
-    idw_knn_bwd, idw_knn_bwd_reference, idw_knn_chunked, idw_knn_chunked_reference,
-    idw_knn_single, idw_knn_single_reference, prep_points, scatter_selection)
+    cell_build_reference, idw_cell_build, idw_knn_bwd, idw_knn_bwd_reference,
+    idw_knn_chunked, idw_knn_chunked_reference, idw_knn_single, idw_knn_single_reference,
+    prep_points, scatter_selection)
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
 from p2igan_tpu_torch.ops.wendland import build_phi_space
@@ -217,6 +225,7 @@ LIB_CHUNK = 16384
 # H100 SXM data sheet: device memory rate and the float32 rate outside the
 # tensor cores (the precision policy keeps TF32 off)
 PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
+ROTATE_BYTES = 128 << 20  # traffic between two uses of one input in graph_ms: > 2x L2
 POOL_SHAPES = [(WINDOW_BATCH, BASE, H, W), (WINDOW_BATCH, 2 * BASE, H // 2, W // 2),
                (WINDOW_BATCH, 4 * BASE, H // 4, W // 4)]
 KERNELS = {
@@ -239,7 +248,7 @@ KERNELS = {
                       "p2igan_tpu/ops/pallas/idw_factored_kernel.py:185"),
     "idw_knn_single": (idw_knn_single, "p2igan_tpu_torch/csrc/idw_knn.cu",
                        "p2igan_tpu/ops/pallas/idw_kernel.py:140"),
-    "idw_knn_chunked": (idw_knn_chunked, "p2igan_tpu_torch/csrc/idw_knn.cu",
+    "idw_knn_chunked": (idw_knn_chunked, "p2igan_tpu_torch/csrc/idw_knn_cells.cu",
                         "p2igan_tpu/ops/pallas/idw_kernel.py:212"),
     "idw_knn_bwd": (idw_knn_bwd, "p2igan_tpu_torch/csrc/idw_knn_bwd.cu",
                     "p2igan_tpu/ops/pallas/idw_kernel.py:355"),
@@ -256,6 +265,9 @@ KERNELS = {
                              "p2igan_tpu_torch/csrc/dec2_stencil.cu",
                              "p2igan_tpu/ops/pallas/dec2_stencil.py:105"),
 }
+# the device kernels of one #9 launch: the cell build, then the search
+CELL_SEARCH_KERNELS = ("cell_init_kernel", "cell_count_kernel", "cell_scan_kernel",
+                       "cell_scatter_kernel", "cell_decode_kernel", "knn_cells_kernel")
 SERVING_KERNELS = ("gauge_topk", "combine_table_multi", "maxpool2_duplicate")
 STI_SERVING_KERNELS = ("gauge_topk", "combine_table", "maxpool2_duplicate")
 # the path whose launch count each kernel reports in the kernels line
@@ -269,6 +281,9 @@ LAUNCH_PATH = {"combine_table": "p2igan sti training",
                "enc0_conv3d_leaky": "simple serving",
                "conv3d_cout1_sigmoid": "simple serving"}
 SIMPLE_MODEL = {"name": "simple", "in_channels": 1, "base_channels": BASE}
+# end-to-end rates of this run by path (serving events/s, training steps/s),
+# printed side by side at the end
+RATES = {}
 
 
 def fail(msg: str) -> None:
@@ -295,9 +310,11 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 def bound(nbytes: float, flops: float) -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the operations at
-    the float32 rate, whichever is larger. No single PyTorch call computes
-    the function of a kernel that uses this default, so ``library_ms`` is null
-    there; the two fused convolutions set it to their cuDNN chain's time."""
+    the float32 rate, whichever is larger. ``library_ms`` defaults to null; a
+    check sets it where PyTorch calls compute the kernel's function: #3's
+    ``max_pool2d`` -> ``repeat_interleave`` and #12's and #13's cuBLAS chains
+    (each its plain version), the fused convolutions' cuDNN chains, and the
+    ``torch.cdist`` -> ``topk`` -> gather chain of #8 and #10."""
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -397,25 +414,94 @@ def combine_bound(n: int) -> dict:
                  LENGTH * hw * (cand * 8 + K * cand + 2 * K * n))
 
 
+def graph_ms(fn, copies: int, reps: int = 10) -> float:
+    """Device time of one call: ``fn(i)`` for i = 0, 1, ... captured in a
+    CUDA graph (at least 20 calls, a whole number of rounds over ``copies``
+    inputs, every output kept), replayed ``reps`` times, the median replay
+    over the calls. No host time between launches, so a kernel of
+    microseconds is timed as the device runs it. The caller gives enough
+    input copies that each comes back only after ``ROTATE_BYTES`` of other
+    traffic, and every call writes a new output, so neither is still in the
+    50 MB L2 and the time can be held against a bound at the HBM rate."""
+    calls = copies * -(-20 // copies)
+    outs = [fn(i) for i in range(copies)]
+    torch.cuda.synchronize()
+    del outs
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(i % copies) for i in range(calls)]
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del outs, graph
+    return statistics.median(times)
+
+
 def check_pool_dup(dev) -> dict:
+    """#3 at the three pyramid shapes of serving (batch 8, the kernels line)
+    and of training (batch 12), bitwise equal to its plain version, which is
+    the PyTorch chain ``max_pool2d`` -> ``repeat_interleave`` (so
+    ``plain_ms`` and ``library_ms`` are the chain's time), NaN and signed zero
+    included; a row width that takes the 8-byte form, and more planes than
+    grid.z holds (the launch's split). Each shape: the time a call (CUDA
+    events around one call, host work included) and the device time
+    (``graph_ms``, over input copies that leave L2 between uses), both beside
+    the chain's, and the share of the bytes bound. A call of either takes
+    tens of microseconds of host and event time for microseconds of device
+    work, so the kernels line reports the device times."""
     gen = torch.Generator().manual_seed(SEED)
-    ms = plain_ms = 0.0
-    for shape in POOL_SHAPES:
-        x = torch.randn(shape, generator=gen).to(dev)
-        out_k, out_p = maxpool2_duplicate(x), maxpool2_duplicate_reference(x)
-        if not bitwise_equal(out_k, out_p):
-            fail(f"maxpool2_duplicate not bitwise equal at {shape}")
-        k_ms = cuda_ms(lambda: maxpool2_duplicate(x))
-        p_ms = cuda_ms(lambda: maxpool2_duplicate_reference(x))
-        gbs = 4 * (x.numel() + out_k.numel()) / (k_ms * 1e-3) / 1e9
-        print(f"maxpool2_duplicate{shape}: bitwise equal; kernel {k_ms:.4f} ms "
-              f"({gbs:.0f} GB/s), plain {p_ms:.4f} ms")
-        ms += k_ms
-        plain_ms += p_ms
-    # the input once, the output (half as many elements) once; 3 compares
-    elems = sum(int(np.prod(shape)) for shape in POOL_SHAPES)
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            **bound(4 * elems * 1.5, elems * 0.75)}
+    result = {}
+    for label, batch in (("serving", WINDOW_BATCH), ("training", TRAIN_BATCH)):
+        ms = chain_ms = dev_ms = dev_chain_ms = 0.0
+        for shape in [(batch,) + s_[1:] for s_ in POOL_SHAPES]:
+            x = torch.randn(shape, generator=gen)
+            x.view(-1)[::7] = 0.0
+            x.view(-1)[1::11] = -0.0
+            x.view(-1)[3::101] = float("nan")
+            x = x.to(dev)
+            out_k, out_p = maxpool2_duplicate(x), maxpool2_duplicate_reference(x)
+            if not bitwise_equal(out_k, out_p):
+                fail(f"maxpool2_duplicate not bitwise equal at {shape}")
+            k_ms = cuda_ms(lambda: maxpool2_duplicate(x), reps=50)
+            p_ms = cuda_ms(lambda: maxpool2_duplicate_reference(x), reps=50)
+            xs = [x] + [x.clone() for _ in range(-(-ROTATE_BYTES // (6 * x.numel())))]
+            kd_ms = graph_ms(lambda i: maxpool2_duplicate(xs[i]), len(xs))
+            pd_ms = graph_ms(lambda i: maxpool2_duplicate_reference(xs[i]), len(xs))
+            del xs
+            b_ms = 4 * 1.5 * x.numel() / PEAK_BYTES_PER_S * 1e3
+            print(f"maxpool2_duplicate{shape}: bitwise equal (NaN, +-0); a call: kernel "
+                  f"{k_ms:.4f} ms, chain {p_ms:.4f} ms ({p_ms / k_ms:.2f}x); device: "
+                  f"kernel {kd_ms:.4f} ms, chain {pd_ms:.4f} ms ({pd_ms / kd_ms:.2f}x); "
+                  f"bytes bound {b_ms:.4f} ms, {b_ms / kd_ms:.3f} of it")
+            ms, chain_ms = ms + k_ms, chain_ms + p_ms
+            dev_ms, dev_chain_ms = dev_ms + kd_ms, dev_chain_ms + pd_ms
+        elems = sum(batch * int(np.prod(s_[1:])) for s_ in POOL_SHAPES)
+        b_ = bound(4 * elems * 1.5, elems * 0.75)
+        print(f"maxpool2_duplicate, the three {label} shapes: a call {ms:.4f} ms, chain "
+              f"{chain_ms:.4f} ms; device {dev_ms:.4f} ms, chain {dev_chain_ms:.4f} ms; "
+              f"bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}), "
+              f"{b_['bound_ms'] / dev_ms:.3f} of it on the device")
+        if label == "serving":  # the input once, the output (half as many) once
+            result = {"max_abs_err": 0.0, "ms": dev_ms, "plain_ms": dev_chain_ms, **b_,
+                      "library_ms": dev_chain_ms}
+    x = torch.randn(WINDOW_BATCH, BASE, 10, 6, generator=gen).to(dev)  # W % 4 != 0
+    if not bitwise_equal(maxpool2_duplicate(x), maxpool2_duplicate_reference(x)):
+        fail("maxpool2_duplicate (8-byte form) not bitwise equal")
+    print(f"maxpool2_duplicate{tuple(x.shape)} (rows of 6: the 8-byte form): bitwise equal")
+    x = torch.randn(1, 70000, 16, 128, device=dev,  # 70000 planes a block each: split
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    if not bitwise_equal(maxpool2_duplicate(x), maxpool2_duplicate_reference(x)):
+        fail("maxpool2_duplicate (planes split over grid.x) not bitwise equal")
+    print(f"maxpool2_duplicate{tuple(x.shape)} (more planes than grid.z): bitwise equal")
+    return result
 
 
 def check_combine_bwd(masks) -> dict:
@@ -768,6 +854,7 @@ def serve(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
     for name in required:
         if launches[name] <= 0:
             fail(f"the {model} serving run launched no {name} kernel")
+    RATES[f"{model} serving"] = EVENTS / seconds
     return launches, EVENTS / seconds
 
 
@@ -1002,6 +1089,7 @@ def train(tmp: Path, card: str, dev) -> dict:
         if (s0, s1) != (WARMUP_STEPS, WARMUP_STEPS + TIMED_STEPS):
             fail(f"log points {trainer.log_times}")
         sps = (s1 - s0) / (t_1 - t_0)
+        RATES["p2igan stis GAN" + (" device_decode" if decode else "")] = sps
         print(f"GAN training (device_decode={decode}): {s1} steps at batch "
               f"{TRAIN_BATCH}, base {BASE}, T={LENGTH}, {H}x{W} in {seconds:.2f} s "
               f"(run incl. set-up and validation); {sps:.3f} GAN steps/s over "
@@ -1151,14 +1239,32 @@ def knn_points(dev, batch: int, points: int, block: int, seed: int):
     return pts4.to(dev), pv.to(dev)
 
 
+def knn_all_pairs_ms(batch: int, points: int) -> float:
+    """The TPU kernel's work, every (query, point) pair at 9 + 3k operations
+    and a square root, over the float32 rate: the generic IDW's bound before
+    the cell search, kept beside the new one so the rows stay comparable."""
+    return batch * LENGTH * H * W * points * (9 + 3 * K + 1) / PEAK_FLOPS * 1e3
+
+
 def knn_bound(batch: int, points: int, selection: bool = False) -> dict:
-    """The generic IDW's least time: every (query, point) pair costs the TPU
-    kernels' 9 + 3k operations and one square root; bytes are the points
-    (x, y, z, penalty) and values once, the output (and the selection, k
-    indices and weights a query) once."""
+    """The generic IDW's least time (#8, #9 and #10 compute one function):
+    bytes are the points (x, y, z, penalty) and values once, the output (and
+    the selection, k indices and weights a query) once; operations are the
+    TPU kernels' 9 + 3k and one square root for each certified pair. A pair
+    is certified when it comes no later than the query's k-th selected point
+    in the order the selection uses, (d, index); that order is total, so
+    these are exactly the k selected points of each query, the pairs even an
+    exact search has to look at (any other can be ruled out by a bound, ties
+    and invalid slots included), whatever the data."""
     q = LENGTH * H * W
     return bound(4 * batch * (5 * points + q * (1 + (2 * K if selection else 0))),
-                 batch * q * points * (9 + 3 * K + 1))
+                 batch * q * K * (9 + 3 * K + 1))
+
+
+def knn_bound_line(batch: int, points: int, b_: dict) -> str:
+    return (f"bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}; {batch * LENGTH * H * W * K} "
+            f"certified pairs, {K} a query); the all-pairs work "
+            f"{knn_all_pairs_ms(batch, points):.4f} ms")
 
 
 def library_chain_ms(pts4: torch.Tensor, vals: torch.Tensor, backward: bool = False,
@@ -1223,7 +1329,7 @@ def check_idw_knn_single(dev) -> dict:
               f"cdist chain {lib_ms:.2f} ms ("
               + ("every query of the batch" if not result else
                  f"one {LIB_CHUNK}-query chunk of one sample")
-              + f"), bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+              + f"), {knn_bound_line(TRAIN_BATCH, points, b_)}")
         if not result:
             result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_,
                       "library_ms": lib_ms}
@@ -1242,19 +1348,78 @@ def frame_points(dev, kind: str, points: int, batch: int, seed: int):
     return prep_points(pts, vals, valid)
 
 
+ADVERSARIAL = ("z ties", "xy ties", "2 valid", "empty", "one cell", "outside [0, 1]",
+               "duplicates")
+ADVERSARIAL_POINTS = 32768
+
+
+def adversarial_points(dev):
+    """(pts4, vals) of one full-grid sample a case of ``ADVERSARIAL``, 32768
+    slots: frames 5 and 7 dense (every query of frame 6 sees +-z ties); every
+    other pixel of frames 0-7 (four-way xy ties); random points with 2 valid
+    and with none; every point inside one cell; random points in [-0.5, 1.5];
+    8192 coordinates four times each, at different indices."""
+    rng = np.random.default_rng(SEED + 35)
+    n = ADVERSARIAL_POINTS
+    masks = np.zeros((2, LENGTH, H, W), np.float32)
+    masks[0, [5, 7]] = 1.0
+    masks[1, :8, ::2, ::2] = 1.0
+    lattice = extract_points(torch.from_numpy(masks), torch.from_numpy(masks), n)[0].numpy()
+    pts = np.concatenate([lattice, rng.random((2, n, 3), dtype=np.float32),
+                          0.5 + 0.005 * rng.random((1, n, 3), dtype=np.float32),
+                          rng.random((1, n, 3), dtype=np.float32) * 2 - 0.5,
+                          np.tile(rng.random((1, n // 4, 3), dtype=np.float32), (1, 4, 1))])
+    valid = np.ones((len(ADVERSARIAL), n), bool)
+    valid[2, 2:] = False
+    valid[3] = False
+    vals = rng.normal(size=valid.shape).astype(np.float32) * valid
+    pts4, pv = prep_points(*(torch.from_numpy(a) for a in (pts, vals, valid)))
+    return pts4.to(dev), pv.to(dev)
+
+
+def check_cell_build(pts4: torch.Tensor, label: str) -> None:
+    """The card's cell build (as #9 runs it) against its plain version: counts,
+    starts and boxes equal, every cell holding the same members (the card's
+    order within a valid cell is free), the invalid set in index order."""
+    dims = idw_kernel.cell_dims(*GRID)
+    got = idw_cell_build(pts4, dims)
+    want = cell_build_reference(pts4, dims)
+    count, start, order, lo, hi = want
+    C, Pp = count.shape[1], pts4.shape[1]
+    cell_sorted = torch.stack([torch.repeat_interleave(torch.arange(C, device=pts4.device),
+                                                       count[b].long())
+                               for b in range(count.shape[0])])
+    key = lambda o: torch.sort(cell_sorted.long() * Pp + o.long(), dim=1).values
+    same_inv = all(torch.equal(got[2][b, int(start[b, -1]):], order[b, int(start[b, -1]):])
+                   for b in range(count.shape[0]))
+    if not (torch.equal(got[0], count) and torch.equal(got[1], start)
+            and bool((got[3] == lo).all()) and bool((got[4] == hi).all())
+            and torch.equal(key(got[2]), key(order)) and same_inv):
+        fail(f"the card's cell build differs from its plain version ({label})")
+    print(f"cell build ({label}, B={count.shape[0]}, {C} cells a sample of "
+          f"{dims[0]}x{dims[1]}x{dims[2]} + the invalid set): equal to its plain version; "
+          f"{int(count[:, :-1].sum())} valid points, {int(count[:, -1].sum())} invalid "
+          f"slots, at most {int(count[:, :-1].max())} in a cell")
+
+
 def check_idw_knn_chunked(dev) -> dict:
-    """Kernel #9 at Q = 262144 under each mask that varies per frame, B=12 at
-    the config's budget (fi 98304, stin 67968, nowcasting 65536 points): out,
-    sel_idx and w_norm bitwise equal to the plain version on all 12 samples
-    at fi (the kernels line's row; the plain version takes ~2 s a sample) and
-    on the first two under stin and nowcasting; the linearity identity of the
-    scatter backward; the time at serving's B=8. Then #9 against #8 at
-    P = 3200, bit for bit. The kernels line reports fi at B=12, with no
-    library time: the cdist chain over the whole batch would take minutes,
-    so it is timed on one chunk and printed as that."""
+    """Kernel #9 (the cell search) at Q = 262144 under each mask that varies
+    per frame, B=12 at the config's budget (fi 98304, stin 67968, nowcasting
+    65536 points): the card's cell build against its plain version; out,
+    sel_idx and w_norm bitwise equal to the brute-force plain version on all 12
+    samples at fi (the kernels line's row; ~2 s a sample) and on the first two
+    under stin and nowcasting; the linearity identity of the scatter backward;
+    the time at serving's B=8 and of the build alone; the bound from the
+    certified pairs (``knn_bound``) beside the all-pairs work. Then the
+    adversarial cases (``adversarial_points``), build and selection bitwise,
+    and #9 against #8 at P = 3200, bit for bit. The kernels line reports fi at B=12, with no
+    library time: the cdist chain over the whole batch would take minutes, so
+    it is timed on one chunk and printed as that."""
     result = {}
+    dims = idw_kernel.cell_dims(*GRID)
     for kind, points in FRAME_MASKS:
         pts4, pv = frame_points(dev, kind, points, TRAIN_BATCH, SEED + 31)
+        check_cell_build(pts4, kind)
         out_k, (sel_k, w_k) = idw_knn_chunked(pts4, pv, GRID, with_sel=True)
         n = TRAIN_BATCH if kind == "fi" else 2
         torch.cuda.synchronize()
@@ -1276,23 +1441,38 @@ def check_idw_knn_chunked(dev) -> dict:
                             .double()).sum())
         if not abs(lhs - rhs) <= tol:
             fail(f"chunked scatter backward ({kind}): <dv, v> {lhs} vs <g, f(v)> {rhs}")
-        k_ms = cuda_ms(lambda: idw_knn_chunked(pts4, pv, GRID, with_sel=True), reps=3,
-                       warmup=1)
+        k_ms = cuda_ms(lambda: idw_knn_chunked(pts4, pv, GRID, with_sel=True), reps=10)
         serve_ms = cuda_ms(lambda: idw_knn_chunked(pts4[:WINDOW_BATCH], pv[:WINDOW_BATCH],
-                                                   GRID), reps=3, warmup=1)
+                                                   GRID), reps=10)
+        build_ms = cuda_ms(lambda: idw_cell_build(pts4, dims), reps=10)
         b_ = knn_bound(TRAIN_BATCH, points, selection=True)
         line = (f"idw_knn_chunked[{kind}] B={TRAIN_BATCH} Q={LENGTH * H * W} P={points} "
                 f"k={K}: out, sel_idx, w_norm bitwise equal on {n} samples, max abs err "
                 f"{e:.3e}; <dv, v> - <g, f(v)> = {lhs - rhs:.3e} (limit {tol:.3e}); "
-                f"kernel {k_ms:.4f} ms with the selection, B={WINDOW_BATCH} without "
-                f"{serve_ms:.4f} ms; plain {p_ms:.1f} ms on {n} samples; "
-                f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}), "
-                f"{b_['bound_ms'] / k_ms:.3f} of it")
+                f"kernel {k_ms:.4f} ms with the selection (the cell build alone "
+                f"{build_ms:.4f} ms), B={WINDOW_BATCH} without {serve_ms:.4f} ms; plain "
+                f"{p_ms:.1f} ms on {n} samples; {knn_bound_line(TRAIN_BATCH, points, b_)}"
+                f", {b_['bound_ms'] / k_ms:.4f} of the bound")
         if kind == "fi":
             lib_ms = library_chain_ms(pts4, pv, whole=False)
             line += f"; cdist chain {lib_ms:.1f} ms on one {LIB_CHUNK}-query chunk of one sample"
             result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
         print(line)
+    pts4, pv = adversarial_points(dev)
+    check_cell_build(pts4, "adversarial: " + ", ".join(ADVERSARIAL))
+    out_k, (sel_k, w_k) = idw_knn_chunked(pts4, pv, GRID, with_sel=True)
+    out_p, (sel_p, w_p) = idw_knn_chunked_reference(pts4, pv, GRID)
+    for b, name in enumerate(ADVERSARIAL):
+        if not (bitwise_equal(out_k[b], out_p[b]) and torch.equal(sel_k[b], sel_p[b])
+                and bitwise_equal(w_k[b], w_p[b])):
+            fail(f"idw_knn_chunked ({name}) differs from its plain version: sel_idx "
+                 f"{int((sel_k[b] != sel_p[b]).sum())} entries")
+    if bool(out_k[3].any()) or not bool(out_k[2].abs().max() > 0.1):
+        fail("idw_knn_chunked: an empty sample is not zero, or 2 valid points gave none")
+    adv_ms = cuda_ms(lambda: idw_knn_chunked(pts4, pv, GRID, with_sel=True), reps=10)
+    print(f"idw_knn_chunked, the adversarial cases (P={ADVERSARIAL_POINTS} a sample: "
+          f"{', '.join(ADVERSARIAL)}): out, sel_idx, w_norm bitwise equal to the plain "
+          f"version; kernel {adv_ms:.4f} ms for the {len(ADVERSARIAL)} samples")
     pts4, pv = knn_points(dev, TRAIN_BATCH, STI_POINTS, STI_BLOCK, SEED + 32)
     if not bitwise_equal(idw_knn_chunked(pts4, pv, GRID)[0], idw_knn_single(pts4, pv, GRID)):
         fail(f"idw_knn_chunked differs from idw_knn_single at P={STI_POINTS}")
@@ -1335,8 +1515,8 @@ def check_idw_knn_bwd(dev) -> dict:
           f"{float(mass.min()):.3f} to {float(mass.max()):.3f}), repeats "
           f"bitwise: {bitwise_equal(got, again)}; <dv, v> - <g, f(v)> = {lhs - rhs:.3e} "
           f"(limit {tol:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cdist chain + "
-          f"index_add_ {lib_ms:.2f} ms (every query of the batch), bound {b_['bound_ms']:.4f} ms "
-          f"({b_['bound_by']})")
+          f"index_add_ {lib_ms:.2f} ms (every query of the batch), "
+          f"{knn_bound_line(TRAIN_BATCH, STI_POINTS, b_)}")
     return {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_, "library_ms": lib_ms}
 
 
@@ -1405,9 +1585,9 @@ def train_stin(tmp: Path, card: str, dev) -> tuple:
                          .read_text())
     total = sum(summary["kernel_ms"].values())
     ours = sum(ms for key, ms in summary["kernel_ms"].items()
-               if "idw_knn_chunked_kernel(" in key)
+               if any(f"{name}(" in key for name in CELL_SEARCH_KERNELS))
     if not (total > 0 and ours > 0):
-        fail("the stin profile shows no device time for idw_knn_chunked_kernel")
+        fail("the stin profile shows no device time for #9 (the cell build and search)")
     print(f"{label}: of {total:.2f} ms of kernel time in the {summary['steps']} profiled "
           f"steps, #9 takes {ours:.3f} ms = {ours / total:.4f}")
     return launches, sps
@@ -1470,8 +1650,9 @@ def check_mlp_tail(dev) -> dict:
               f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
               f"(cublas_chain_ms {p_ms:.4f}), bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})")
-        # the kernels line reports the training shape (the larger J)
-        result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b}
+        # the kernels line reports the training shape (the larger J); the
+        # plain version is the cuBLAS chain, so it is also the library time
+        result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": p_ms}
     return result
 
 
@@ -1515,9 +1696,9 @@ def check_mlp_tail_bwd(dev) -> dict:
           f"plain vs float64, x max|plain|: "
           + ", ".join(f"{n} {v[0]:.1e}/{v[1]:.1e}/{v[2]:.1e}" for n, v in worst.items())
           + f"; repeats bitwise; kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
-          f"TFLOP/s), plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"TFLOP/s), plain {p_ms:.4f} ms (cublas_chain_ms), bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b}
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": p_ms}
 
 
 def write_dk_serving(tmp: Path, model: str) -> tuple:
@@ -1624,6 +1805,7 @@ def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> 
     if (s0, s1) != (WARMUP_STEPS, steps):
         fail(f"log points {trainer.log_times}")
     sps = (s1 - s0) / (t_1 - t_0)
+    RATES[label] = sps
     print(f"{label} training: {s1} steps at batch {TRAIN_BATCH}, T={LENGTH}, {H}x{W} in "
           f"{seconds:.2f} s (run incl. set-up and validation); {sps:.3f} steps/s over "
           f"steps {s0 + 1}-{s1} on {card}; mean losses (rec, adv, dis) {losses}; all "
@@ -2017,6 +2199,12 @@ def main() -> int:
             paths[label], sps = train_simple(tmp, card, dev, use_gan)
             print(f"{label}: {sps:.4f} steps/s on {card}")
 
+    print(f"p2igan in this run on {card}: serving events/s "
+          + ", ".join(f"{kind} {RATES[f'p2igan{sfx} serving']:.4f}" for kind, sfx in
+                      (("stis", ""), ("sti", "_sti"), ("stin", "_stin"), ("fi", "_fi"),
+                       ("nowcasting", "_nowcasting")))
+          + "; GAN steps/s " + ", ".join(f"{key[7:]} {sps:.4f}" for key, sps in RATES.items()
+                                         if key.startswith("p2igan") and "GAN" in key))
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"launches_by_path": paths}))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,5 @@
 // The selection of the generic IDW k-NN, shared by the single-pass forward
-// (#8, idw_knn.cu), the tiled forward (#9, idw_knn.cu) and the single-pass
+// (#8, idw_knn.cu), the cell search (#9, idw_knn_cells.cu) and the single-pass
 // backward (#10, idw_knn_bwd.cu), so the tie-sensitive arithmetic exists once,
 // as _idw_kernel / _idw_topk_chunk_kernel / _idw_bwd_kernel share it in
 // p2igan_tpu/ops/pallas/idw_kernel.py.
@@ -9,11 +9,12 @@
 // sqrt(((dx*dx + dy*dy) + dz*dz) + penalty), every step rounded to nearest
 // (the library builds with -fmad=false, and the intrinsics spell it out).
 // A query keeps its k best (d, index) pairs in registers, sorted
-// lexicographically. Candidates are visited in ascending index and enter
-// only when d is strictly below the k-th entry, so an equal distance keeps
-// the lower index: exactly k first-min rounds with the lowest-index tie rule.
-// Entries move down the list on the (d, index) order, so a merge of lists
-// from disjoint index ranges would give the same result.
+// lexicographically. #8 and #10 visit candidates in ascending index, and a
+// candidate enters only when d is strictly below the k-th entry, so an equal
+// distance keeps the lower index: exactly k first-min rounds with the
+// lowest-index tie rule. #9 visits them out of index order, so its entry test
+// (knn_scan_any_order) compares (d, index) pairs; entries move down the list
+// on that order either way, and both select the same k.
 
 #pragma once
 
@@ -96,6 +97,53 @@ __device__ __forceinline__ void knn_scan(KnnList& l, float qx, float qy,
   }
 }
 
+// The cell search (#9, idw_knn_cells.cu) visits points out of index order, so
+// its entry test is lexicographic: (d, index) strictly below the k-th entry.
+// worst_idx carries the k-th entry's index beside l.worst.
+__device__ __forceinline__ int knn_worst_idx(const KnnList& l, int k) {
+  int w = l.idx[0];
+#pragma unroll
+  for (int r = 1; r < kKnnMaxK; ++r) w = (r == k - 1) ? l.idx[r] : w;
+  return w;
+}
+
+__device__ __forceinline__ void knn_scan_any_order(KnnList& l, int& worst_idx,
+                                                   float qx, float qy, float qz,
+                                                   const float4* s_pts,
+                                                   const int* s_idx, int n, int k) {
+  for (int j = 0; j < n; ++j) {
+    const float d = knn_distance(qx, qy, qz, s_pts[j]);
+    const int i = s_idx[j];
+    if (d < l.worst || (d == l.worst && i < worst_idx)) {
+      knn_insert(l, d, i, k);
+      worst_idx = knn_worst_idx(l, k);
+    }
+  }
+}
+
+// Gap along one axis between [q_lo, q_hi] and a box's [b_lo, b_hi], 0 where
+// they overlap; rounded as knn_distance's difference, so that it is at most
+// |q - p| of every q in the first range and p in the second.
+__device__ __forceinline__ float knn_gap(float q_lo, float q_hi, float b_lo, float b_hi) {
+  return b_lo > q_hi ? __fsub_rn(b_lo, q_hi) : (q_lo > b_hi ? __fsub_rn(q_lo, b_hi) : 0.0f);
+}
+
+// Lower bound of knn_distance from any query in [q_lo, q_hi] to any point in a
+// box lo.xyz..hi.xyz whose least penalty is lo.w: the same rounded operations
+// in the same order on smaller (or equal) operands. Round-to-nearest is
+// monotone, so the bound is <= the computed d of every member; an empty box
+// (lo = +inf) gives +inf.
+__device__ __forceinline__ float knn_box_bound(float3 q_lo, float3 q_hi, float4 lo,
+                                               float4 hi) {
+  const float gx = knn_gap(q_lo.x, q_hi.x, lo.x, hi.x);
+  const float gy = knn_gap(q_lo.y, q_hi.y, lo.y, hi.y);
+  const float gz = knn_gap(q_lo.z, q_hi.z, lo.z, hi.z);
+  const float d2 = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz)),
+      lo.w);
+  return __fsqrt_rn(d2);
+}
+
 // IDW weight of a selected distance (_weight_from_d of the TPU kernels): an
 // invalid slot's 1e15 gives ~1e-30, effectively zero.
 __device__ __forceinline__ float knn_weight(float d, float rho, float tau,
@@ -122,6 +170,31 @@ __device__ __forceinline__ float knn_weights(const KnnList& l, int k, float rho,
     }
   }
   return __fadd_rn(w_sum, 1e-12f);
+}
+
+// A query's weighted mean of its k selected values, and, where sel is not
+// null, its selection: indices and normalized weights.
+__device__ __forceinline__ void knn_write_out(const KnnList& l,
+                                              const float* __restrict__ vals, int k,
+                                              float rho, float tau, int rho_is_2,
+                                              float* out, int* sel, float* w_norm) {
+  float w[kKnnMaxK];
+  const float denom = knn_weights(l, k, rho, tau, rho_is_2, w);
+  float wv = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kKnnMaxK; ++r) {
+    if (r < k) wv = __fadd_rn(wv, __fmul_rn(w[r], vals[l.idx[r]]));
+  }
+  *out = __fdiv_rn(wv, denom);
+  if (sel != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kKnnMaxK; ++r) {
+      if (r < k) {
+        sel[r] = l.idx[r];
+        w_norm[r] = __fdiv_rn(w[r], denom);
+      }
+    }
+  }
 }
 
 }  // namespace p2i

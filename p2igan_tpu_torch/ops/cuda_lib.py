@@ -58,7 +58,8 @@ _SIGNATURES = {
     "p2i_enc0_conv3d_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "p2i_dec2_conv3d_sigmoid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2i_idw_knn_single": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
-    "p2i_idw_knn_chunked": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    "p2i_idw_cell_build": [_P] * 5 + [_I] * 5 + [_P],
+    "p2i_idw_knn_chunked": [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P],
     "p2i_idw_knn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
 }
 
@@ -150,7 +151,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of the tensor's device, as a raw pointer."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor,

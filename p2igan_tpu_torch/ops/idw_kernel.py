@@ -7,9 +7,11 @@ do not factor into gauges x frames. Three kernels:
 * :func:`idw_knn_single` -- P up to :data:`P_SINGLE_PASS_MAX` points: every
   query's k nearest points and their weighted mean, the sample's points
   resident in shared memory (``csrc/idw_knn.cu``, kernel #8);
-* :func:`idw_knn_chunked` -- any P: the same selection with the points
-  streamed through shared memory in tiles, optionally returning the selection
-  (``csrc/idw_knn.cu``, kernel #9);
+* :func:`idw_knn_chunked` -- any P: the same selection by an exact search
+  over cells of points (a cell build, then each query visits only the cells
+  whose lower bound is not above its k-th distance), optionally returning the
+  selection (``csrc/idw_knn_cells.cu``, kernel #9; its plain version stays
+  the brute force over every pair);
 * :func:`idw_knn_bwd` -- d_values of the single-pass forward: the selection
   is recomputed and the normalized weight x cotangent scattered into the
   points (``csrc/idw_knn_bwd.cu``, kernel #10).
@@ -188,24 +190,130 @@ def idw_knn_single(pts4: torch.Tensor, vals: torch.Tensor,
 idw_knn_single.launches = 0
 
 
-# -- #9: points streamed in tiles ---------------------------------------------
+# -- #9: an exact search over cells of points ---------------------------------
+
+# Cells: one frame deep and 8 x 8 query pixels wide (16 x 16 x 16 a sample at
+# full width), coarser where that would exceed this many (csrc/idw_knn_cells.cu
+# kMaxCells; its shared memory holds one lower bound a cell)
+MAX_CELLS = 4096
+CELL_PIXELS = 8
+CELL_CHUNK = 256   # slots a build block (csrc/idw_knn_cells.cu kBuildThreads)
+
+
+def cell_dims(D: int, H: int, W: int) -> Tuple[int, int, int]:
+    """(CZ, CY, CX) cells over the (D, H, W) query grid's extent: CELL_PIXELS
+    pixels square and one frame deep, widened (then deepened) until there are
+    at most :data:`MAX_CELLS`."""
+    px, frames = CELL_PIXELS, 1
+    while True:
+        dims = (-(-D // frames), -(-H // px), -(-W // px))
+        if dims[0] * dims[1] * dims[2] <= MAX_CELLS:
+            return dims
+        if dims[1] * dims[2] > 256:
+            px *= 2
+        else:
+            frames *= 2
+
+
+def _cell_axis(v: torch.Tensor, n: int) -> torch.Tensor:
+    """Cell index along one axis: floor(v * n) clamped to [0, n - 1], NaN to 0
+    (the kernel's fminf(fmaxf(floorf(v * n), 0), n - 1))."""
+    f = torch.floor(v * float(n))
+    f = torch.where(f >= 0, f, 0.0)
+    return torch.minimum(f, torch.tensor(float(n - 1))).long()
+
+
+def cell_build_reference(pts4: torch.Tensor, dims: Tuple[int, int, int]):
+    """Plain version of the cell build that #9 runs on the card before its
+    search (``p2i_idw_cell_build``). Every valid point (penalty 0) falls in the
+    cell of its clamped coordinates; every other slot (invalid or padding) in
+    one more set, cell C - 1. Returns
+
+    * ``count`` (B, C) int32 members a cell, ``start`` (B, C) int32 the
+      exclusive per-sample scan of ``count``;
+    * ``order`` (B, Pp) int32: the slots' original indices in cell order
+      (ascending within a cell here; the card's order within a cell is free,
+      since the search's entry test is lexicographic);
+    * ``lo`` (B, C, 4), ``hi`` (B, C, 4) float32: the members' bounding box
+      (x, y, z) with the least member penalty in ``lo[..., 3]`` (``hi[..., 3]``
+      0); an empty cell has lo = +inf, hi = -inf.
+    """
+    B, Pp, _ = pts4.shape
+    CZ, CY, CX = dims
+    C = CZ * CY * CX + 1
+    x, y, z, pen = pts4.unbind(-1)
+    cell = (_cell_axis(z, CZ) * CY + _cell_axis(y, CY)) * CX + _cell_axis(x, CX)
+    cell = torch.where(pen != 0, C - 1, cell)
+    order = torch.argsort(cell, dim=1, stable=True)
+    count = torch.zeros((B, C), dtype=torch.int64, device=pts4.device)
+    count.scatter_add_(1, cell, torch.ones_like(cell))
+    start = torch.cumsum(count, 1) - count
+    inf = float("inf")
+    lo = torch.full((B, C, 4), inf, dtype=torch.float32, device=pts4.device)
+    hi = torch.full((B, C, 4), -inf, dtype=torch.float32, device=pts4.device)
+    idx = cell[..., None].expand(-1, -1, 4)
+    lo.scatter_reduce_(1, idx, pts4, "amin")
+    hi.scatter_reduce_(1, idx, pts4, "amax")
+    hi[..., 3] = 0.0
+    return (count.to(torch.int32), start.to(torch.int32), order.to(torch.int32),
+            lo, hi)
+
+
+def _cell_scratch(B: int, Pp: int, C: int, dev):
+    """The cell build's buffers (the kernels allocate nothing): ``ints`` holds
+    the cell of each slot (B, Pp), the original indices in cell order (B, Pp)
+    and the invalid set's offset a chunk of CELL_CHUNK slots; the points in
+    cell order (B, Pp, 4); count / start / fill (3, B, C) int32; boxes
+    (B, C, 2, 4) float32."""
+    ints = torch.empty((B * (2 * Pp + -(-Pp // CELL_CHUNK)),), device=dev,
+                       dtype=torch.int32)
+    return (ints, torch.empty((B, Pp, 4), device=dev, dtype=torch.float32),
+            torch.empty((3, B, C), device=dev, dtype=torch.int32),
+            torch.empty((B, C, 2, 4), device=dev, dtype=torch.float32))
+
+
+def idw_cell_build(pts4: torch.Tensor, dims: Tuple[int, int, int]):
+    """The card's cell build alone, as :func:`cell_build_reference` returns it
+    (``order`` in the card's order within a cell). #9 runs the same build
+    inside every launch; this entry exists to hold the build against its plain
+    version. CPU tensors take the plain version."""
+    if pts4.device.type == "cpu":
+        return cell_build_reference(pts4, dims)
+    name = "idw_cell_build"
+    cuda_lib.require_cuda(name, pts4)
+    B, Pp = pts4.shape[0], pts4.shape[1]
+    if pts4.shape != (B, Pp, 4) or pts4.data_ptr() % 16 or B == 0 or Pp == 0:
+        raise ValueError(f"{name}: points must be (B, Pp, 4) rows aligned to 16 "
+                         f"bytes, got {tuple(pts4.shape)}")
+    C = dims[0] * dims[1] * dims[2] + 1
+    ints, spts, cells, boxes = _cell_scratch(B, Pp, C, pts4.device)
+    with torch.cuda.device(pts4.device):
+        rc = cuda_lib.library().p2i_idw_cell_build(
+            pts4.data_ptr(), ints.data_ptr(), spts.data_ptr(), cells.data_ptr(),
+            boxes.data_ptr(), B, Pp, *dims, cuda_lib.stream_of(pts4))
+    cuda_lib.check(rc, name)
+    order = ints[B * Pp:2 * B * Pp].view(B, Pp)
+    return cells[0], cells[1], order, boxes[:, :, 0], boxes[:, :, 1]
+
 
 def idw_knn_chunked_reference(pts4, vals, out_shape, k: int = 4, rho: float = 2.0,
                               tau: float = 0.05, with_sel: bool = True):
     """Plain version of :func:`idw_knn_chunked`: (out (B, Q), (sel_idx (B, Q, k)
     int32, w_norm (B, Q, k)) or None), as ``_idw_forward_chunked`` returns
-    them. The global lexicographic (d, index) top-k equals the TPU kernel's
-    per-chunk top-k followed by its merge."""
+    them, by brute force over every (query, point) pair. The global
+    lexicographic (d, index) top-k equals the TPU kernel's per-chunk top-k
+    followed by its merge, and the card's cell search."""
     return _forward_plain(pts4, vals, out_shape, k, rho, tau, with_sel)
 
 
 def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
                     out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
                     tau: float = 0.05, with_sel: bool = False):
-    """(out (B, Q), selection or None) for any number of points: each query's
-    top-k runs across all tiles of points in registers. ``with_sel`` also
-    returns sel_idx (B, Q, k) int32 and w_norm (B, Q, k), the backward's
-    scatter (what a training forward needs)."""
+    """(out (B, Q), selection or None) for any number of points: the card
+    sorts the points into cells (:func:`cell_dims`) and each query scans only
+    the cells whose lower bound does not exceed its k-th distance, an exact
+    search. ``with_sel`` also returns sel_idx (B, Q, k) int32 and w_norm
+    (B, Q, k), the backward's scatter (what a training forward needs)."""
     if pts4.device.type == "cpu":
         return idw_knn_chunked_reference(pts4, vals, out_shape, k, rho, tau, with_sel)
     name = "idw_knn_chunked"
@@ -214,6 +322,8 @@ def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"{name}: values {tuple(vals.shape)}, expected {(B, Pp)}")
     lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
     dev = pts4.device
+    dims = cell_dims(*out_shape)
+    ints, spts, cells, boxes = _cell_scratch(B, Pp, dims[0] * dims[1] * dims[2] + 1, dev)
     out = torch.empty((B, Q), device=dev, dtype=torch.float32)
     sel = w_norm = None
     if with_sel:
@@ -222,8 +332,9 @@ def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
     with torch.cuda.device(dev):
         rc = cuda_lib.library().p2i_idw_knn_chunked(
             pts4.data_ptr(), vals.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            lz.data_ptr(), out.data_ptr(), 0 if sel is None else sel.data_ptr(),
-            0 if w_norm is None else w_norm.data_ptr(), B, Pp, *out_shape, k,
+            lz.data_ptr(), ints.data_ptr(), spts.data_ptr(), cells.data_ptr(),
+            boxes.data_ptr(), out.data_ptr(), 0 if sel is None else sel.data_ptr(),
+            0 if w_norm is None else w_norm.data_ptr(), B, Pp, *out_shape, *dims, k,
             float(rho), float(tau), int(abs(rho - 2.0) < 1e-6),
             cuda_lib.stream_of(pts4))
     cuda_lib.check(rc, name)

@@ -65,8 +65,13 @@ class _MaxPool2Duplicate(torch.autograd.Function):
 def maxpool2_duplicate(x: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) float32 -> (N, 2C, H/2, W/2): 2x2 max pool, then every
     channel duplicated consecutively (reference DownsampleDuplicateChannels).
-    Differentiable."""
-    return _MaxPool2Duplicate.apply(x)
+    Differentiable; where no gradient is wanted the autograd Function is left
+    out (the same forward, less host time a call)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _MaxPool2Duplicate.apply(x)
+    if x.device.type == "cpu":
+        return maxpool2_duplicate_reference(x)
+    return _maxpool2_duplicate_cuda(x)
 
 
 maxpool2_duplicate.launches = 0

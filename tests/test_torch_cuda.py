@@ -100,9 +100,18 @@ def test_kernel_wrappers_validate_and_count(dev):
         K.gauge_topk(q, q, q[:4], q[:4], q[:4], k=9)
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 128, 128), (3, 5, 6, 10), (1, 1, 2, 2)])
-def test_pool_dup_kernel_bitwise(dev, shape):
-    x = torch.randn(shape, device=dev)
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("shape", [(8, 64, 128, 128), (12, 64, 128, 128), (12, 256, 32, 32),
+                                   (3, 5, 6, 10), (2, 3, 8, 6), (1, 1, 2, 2),
+                                   (2, 40000, 2, 4), (1, 70000, 16, 128)])
+def test_pool_dup_kernel_bitwise(dev, shape, offset):
+    """Bitwise equal to max_pool2d -> repeat_interleave, NaN and +-0 included:
+    the 16-byte form (W % 4 == 0, 16-byte aligned), the 8-byte form (rows of
+    6 or 10 or 2, or an input offset by two floats), the training batch,
+    many small planes a block, and more planes than grid.z holds (one plane
+    a block: the launch splits them over grid.x)."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, device=dev)[offset:].view(shape)
     x.view(-1)[::7] = 0.0
     x.view(-1)[1::11] = -0.0
     x.view(-1)[3::101] = float("nan")
@@ -649,7 +658,8 @@ def test_idw_knn_single_kernel_bitwise(dev, kind, n_valid, B, shape, P):
 
 
 @pytest.mark.parametrize("kind,n_valid", KNN_CASES)
-@pytest.mark.parametrize("B,shape,P", [(2, (4, 40, 40), 4596), (1, (16, 128, 128), 65536)])
+@pytest.mark.parametrize("B,shape,P", [(2, (4, 40, 40), 4596), (1, (16, 128, 128), 65536),
+                                       (2, (3, 19, 37), 700)])
 def test_idw_knn_chunked_kernel_bitwise(dev, kind, n_valid, B, shape, P):
     """Kernel #9 against its plain version on the card: out, sel_idx and
     w_norm bitwise; without the selection it writes the same output."""
@@ -665,6 +675,73 @@ def test_idw_knn_chunked_kernel_bitwise(dev, kind, n_valid, B, shape, P):
     alone, none = IK.idw_knn_chunked(pts4, pv, shape)
     assert none is None and IK.idw_knn_chunked.launches == before + 1
     assert torch.equal(alone, got)
+
+
+def _frame_mask_points(kind, B, shape, seed):
+    """prep_points of B windows under ``kind`` masks drawn as the loaders draw
+    them (data/masks.py, the shipped configs' keep 4, block 10, intervals
+    2..6), their observed voxels in a budget of the largest count."""
+    from p2igan_tpu_torch.data.masks import create_mask_np
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+    from p2igan_tpu_torch.ops.idw import extract_points
+
+    rng = np.random.default_rng(seed)
+    masks = np.stack([create_mask_np(shape + (1,), rng, kind, block_sizes=[10], keep=4,
+                                     interval=[2, 3, 4, 5, 6])[..., 0] for _ in range(B)])
+    P = max(int(masks.reshape(B, -1).sum(1).max()), 1)
+    vals = rng.random(masks.shape).astype(np.float32) * masks
+    pts, v, valid = extract_points(torch.from_numpy(masks), torch.from_numpy(vals), P)
+    return IK.prep_points(pts, v, valid)
+
+
+@pytest.mark.parametrize("kind", ["fi", "stin", "nowcasting"])
+def test_idw_knn_chunked_frame_masks_bitwise(dev, kind):
+    """#9 (the cell search) on the masks that take it, bitwise against the
+    brute-force plain version: out, sel_idx and w_norm."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    shape = (16, 64, 64)
+    pts4, pv = (t.to(dev) for t in _frame_mask_points(kind, 3, shape, 11))
+    got, (sel, w_norm) = IK.idw_knn_chunked(pts4, pv, shape, with_sel=True)
+    want, (rsel, rw) = IK.idw_knn_chunked_reference(pts4, pv, shape)
+    assert torch.equal(sel, rsel)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(w_norm.view(torch.int32), rw.view(torch.int32))
+
+
+def test_idw_knn_chunked_adversarial_bitwise(dev):
+    """#9 on the CPU search model's adversarial cases (lattice ties on both
+    +-z sides, four-way xy ties, 2 valid, empty, one cell, points outside
+    [0, 1], duplicate coordinates), one launch over all of them, bitwise
+    against the brute-force plain version, and its cell build against the
+    plain build."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+    from test_torch_idw_cells import CASES, SHAPE, _case
+
+    rows = [_case(name) for name in CASES]
+    Pp = max(r.shape[1] for r in rows)
+    pad = torch.tensor([0.0, 0.0, 0.0, IK.PENALTY])
+    pts4 = torch.cat([torch.cat([r, pad.expand(r.shape[0], Pp - r.shape[1], 4)], 1)
+                      for r in rows]).contiguous().to(dev)
+    pv = torch.from_numpy(np.random.default_rng(4).normal(size=pts4.shape[:2])
+                          .astype(np.float32)).to(dev) * (pts4[..., 3] == 0)
+    got, (sel, w_norm) = IK.idw_knn_chunked(pts4, pv, SHAPE, with_sel=True)
+    want, (rsel, rw) = IK.idw_knn_chunked_reference(pts4, pv, SHAPE)
+    assert torch.equal(sel, rsel)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(w_norm.view(torch.int32), rw.view(torch.int32))
+    dims = IK.cell_dims(*SHAPE)
+    count, start, order, lo, hi = IK.idw_cell_build(pts4, dims)
+    rcount, rstart, rorder, rlo, rhi = IK.cell_build_reference(pts4, dims)
+    assert torch.equal(count, rcount) and torch.equal(start, rstart)
+    assert bool((lo == rlo).all()) and bool((hi == rhi).all())
+    for b in range(pts4.shape[0]):
+        for c in range(count.shape[1]):
+            s, n = int(start[b, c]), int(count[b, c])
+            got_members = order[b, s:s + n]
+            if c < count.shape[1] - 1:  # any order within a valid cell
+                got_members = got_members.sort().values
+            assert torch.equal(got_members, rorder[b, s:s + n])
 
 
 @pytest.mark.parametrize("kind", ["random", "lattice"])
