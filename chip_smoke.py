@@ -17,12 +17,15 @@
      ``max_pool2d`` -> ``repeat_interleave`` chain, its plain version);
    - at the shapes of the GAN training step (p2igan_gan_baseline_gauge.json:
      batch 12): combine_table_multi_bwd (N=12, D=16, HW=16384, G=128, k=4, on
-     both masks; max abs error <= 1e-5 x max|plain|, since its sums run in
-     another order) and decode_normalize_mask ((12, 16, 128, 128, 1) uint8
-     with a (12, 1, 128, 128, 1) mask; bitwise against the numpy decode).
+     both masks; max abs error <= 1e-5 x max|plain|, since it sums in 64-bit
+     fixed point and the plain version in float32; bitwise equal across two
+     launches and at 2, 12, 6, 4 and 1 windows a block) and decode_normalize_mask
+     ((12, 16, 128, 128, 1) uint8 with a (12, 1, 128, 128, 1) mask; bitwise
+     against the numpy decode).
 3. Serves two 64-frame 128x128 fake events through ``scripts/infer_torch.py``
    (seeded full-width generator saved as a reference-layout .pt, stride 16,
-   overlap 12, window batch 8) and checks the output store, that every
+   overlap 12, window batch 8) and checks the output store, that it equals
+   the warm-up run's bit for bit (as every served family below), that every
    serving kernel was launched by that run, and that the card's
    reconstruction agrees with the port's plain CPU path on a 16-frame event
    (atol 1e-4 x 255).
@@ -44,7 +47,8 @@
      and the dense-field combine (combine_dense) against their plain versions
      at the training shape (B=12, D=16, G=256, HW=16384), the serving shape
      (B=8) and the reference default block size 4 (1024 gauges, G=1152): the
-     two forwards bitwise, the backward within 1e-5 x max|plain|;
+     two forwards bitwise, the backward within 1e-5 x max|plain| and bitwise
+     equal across two launches;
    - the batched gauge top-k (12 or 8 masks a launch) against single-mask
      launches, its plain version and the CPU path, bitwise, with the slot
      geometry on the device against the host's numpy, bitwise and timed;
@@ -100,9 +104,11 @@
 9. p2igan on masks that vary per frame (stin, fi, nowcasting: the shipped
    configs with ``mask.type`` set in every split; keep 4, block 10, interval
    2..6), through the generic IDW:
-   - the single pass (idw_knn_single, #8) at B=12, Q=262144, P=3200 and 4096
-     on random points, sti-lattice points, 2 valid points and an empty
-     sample: bitwise equal to its plain version on the card;
+   - #8's range (idw_knn_single: the cell search of #9 since this replaced
+     the brute-force kernel) at B=12, Q=262144, P=3200 and 4096 on random
+     points, sti-lattice points, 2 valid points and an empty sample: out,
+     sel_idx and w_norm bitwise equal to the brute-force plain version on the
+     card;
    - the cell search (idw_knn_chunked, #9) at B=12 under each mask at the
      config's budget (98304, 67968, 65536 points): the card's cell build
      against its plain version; out, sel_idx and w_norm bitwise equal to the
@@ -114,21 +120,34 @@
      at P=3200. #8-#10's bound counts the certified pairs (no later than
      the query's k-th selected point in the (d, index) order: k a query)
      and prints the all-pairs work beside it;
-   - the single-pass backward (idw_knn_bwd, #10) at B=12, P=3200: each
-     sample within 1e-5 x the largest sum of |terms| a point of it receives,
-     and the linearity identity <dv, v> == <g, f(v)>;
+   - the backward (scatter_selection, #10: the saved selection scattered,
+     summed in 64-bit fixed point) at B=12, P=3200: each sample within 1e-5 x
+     the largest sum of |terms| a point of it receives, against index_add_
+     and against the recomputed selection of the TPU kernel's function;
+     bitwise equal across two launches and with the queries permuted; the
+     linearity identity <dv, v> == <g, f(v)>; ``index_add_`` of the same
+     terms as its ``library_ms``; then on stin's selection (the global path);
    - the torch.cdist -> topk -> gather chain (16384 queries a call; the port
-     never calls it) over the whole batch at P=3200 as ``library_ms`` of #8
-     and #10; #9's ``library_ms`` is null, the chain's time on one chunk of
-     one fi sample printed beside it;
+     never calls it) over the whole batch at P=3200 as ``library_ms`` of #8;
+     #9's ``library_ms`` is null, the chain's time on one chunk of one fi
+     sample printed beside it;
    - the two events served through ``scripts/infer_torch.py`` under each
      mask (launch counts asserted: #9 twice an event, #3 six times, #8
      never), and one window against the plain versions on the card;
    - the generator's gradients at batch 12 on stin masks (#9) and on sti
-     masks through ``from_config(cfg, idw_factored=False)`` (P=3200: #8,
-     #10), every parameter against the plain versions;
+     masks through ``from_config(cfg, idw_factored=False)`` (P=3200: #8's
+     range, #10), every parameter against the plain versions;
    - 15 hinge-GAN steps on stin masks at batch 12 with ``device_decode``
-     through ``scripts/train_torch.py`` and a profiled resume (#9's share).
+     through ``scripts/train_torch.py`` and a profiled resume (#9's share);
+   - the repeat phase: two 5-step runs each of the stis, sti and stin GANs
+     and of the generic IDW at P <= 4096 (sti masks, idw_factored off) end
+     with bitwise-equal generator, critic and optimizer states; a third run
+     of each under ``torch.use_deterministic_algorithms(True,
+     warn_only=True)`` prints every op PyTorch names as having no
+     deterministic version; then the stis GAN step with cuDNN's
+     deterministic algorithms and without (on, off, off, on; the two
+     15-step runs with them must end bitwise equal, the two without are
+     compared and printed).
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time where there is one, launches on the kernel's main path), then
@@ -147,6 +166,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -182,12 +202,14 @@ from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_table_multi_bwd_reference, combine_table_multi_reference,
     combine_table_reference, gauge_topk, gauge_topk_reference)
 from p2igan_tpu_torch.ops.idw_kernel import (
-    cell_build_reference, idw_cell_build, idw_knn_bwd, idw_knn_bwd_reference,
-    idw_knn_chunked, idw_knn_chunked_reference, idw_knn_single, idw_knn_single_reference,
-    prep_points, scatter_selection)
+    cell_build_reference, idw_cell_build, idw_knn_bwd_reference, idw_knn_chunked,
+    idw_knn_chunked_reference, idw_knn_single, idw_knn_single_reference, prep_points,
+    scatter_selection, scatter_selection_reference)
 from p2igan_tpu_torch.ops.pool_dup import (maxpool2_duplicate,
                                            maxpool2_duplicate_reference)
 from p2igan_tpu_torch.ops.wendland import build_phi_space
+from p2igan_tpu_torch.training import trainer as trainer_module
+from p2igan_tpu_torch.training.checkpoint import load_checkpoint_raw
 from p2igan_tpu_torch.training.trainer import device_busy_us
 
 REPO = Path(__file__).resolve().parent
@@ -246,12 +268,12 @@ KERNELS = {
                           "p2igan_tpu/ops/pallas/idw_factored_kernel.py:444"),
     "combine_dense": (combine_dense, "p2igan_tpu_torch/csrc/combine_dense.cu",
                       "p2igan_tpu/ops/pallas/idw_factored_kernel.py:185"),
-    "idw_knn_single": (idw_knn_single, "p2igan_tpu_torch/csrc/idw_knn.cu",
+    "idw_knn_single": (idw_knn_single, "p2igan_tpu_torch/csrc/idw_knn_cells.cu",
                        "p2igan_tpu/ops/pallas/idw_kernel.py:140"),
     "idw_knn_chunked": (idw_knn_chunked, "p2igan_tpu_torch/csrc/idw_knn_cells.cu",
                         "p2igan_tpu/ops/pallas/idw_kernel.py:212"),
-    "idw_knn_bwd": (idw_knn_bwd, "p2igan_tpu_torch/csrc/idw_knn_bwd.cu",
-                    "p2igan_tpu/ops/pallas/idw_kernel.py:355"),
+    "scatter_selection": (scatter_selection, "p2igan_tpu_torch/csrc/idw_scatter.cu",
+                          "p2igan_tpu/ops/pallas/idw_kernel.py:355"),
     "decode_normalize_mask": (decode_normalize_mask,
                               "p2igan_tpu_torch/csrc/decode_mask.cu",
                               "p2igan_tpu/ops/pallas/decode_mask.py:53"),
@@ -275,7 +297,7 @@ LAUNCH_PATH = {"combine_table": "p2igan sti training",
                "combine_table_bwd": "p2igan sti training",
                "combine_dense": "idw_3d_factored op",
                "idw_knn_single": "p2igan sti single pass gradients",
-               "idw_knn_bwd": "p2igan sti single pass gradients",
+               "scatter_selection": "p2igan sti single pass gradients",
                "idw_knn_chunked": "p2igan stin training",
                "mlp_tail_fused": "dk training", "mlp_tail_bwd": "dk training",
                "enc0_conv3d_leaky": "simple serving",
@@ -505,7 +527,11 @@ def check_pool_dup(dev) -> dict:
 
 
 def check_combine_bwd(masks) -> dict:
-    """Kernel #4 at the training shapes: N=12 windows, D=16, HW=16384."""
+    """Kernel #4 at the training shapes: N=12 windows, D=16, HW=16384: within
+    1e-5 x max|plain| of its plain version (64-bit fixed-point sums against
+    float32 ones in autograd's order), and bitwise equal across two launches
+    and with 12, 6, 4 and 1 windows a block (n_tile; 2 by default), 12 timed
+    beside 2."""
     gen = torch.Generator().manual_seed(SEED)
     err, ms, plain_ms = 0.0, None, None
     for name, mask in masks.items():
@@ -519,13 +545,20 @@ def check_combine_bwd(masks) -> dict:
         if not (scale > 0 and e <= 1e-5 * scale):
             fail(f"combine_table_multi_bwd max abs err {e} > 1e-5 x {scale} on {name}")
         err = max(err, e)
+        for n_tile in (None, 12, 6, 4, 1):
+            again = combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, n_tile=n_tile)
+            if not bitwise_equal(again, out_k):
+                fail(f"combine_table_multi_bwd on {name} does not repeat bit for bit "
+                     f"(n_tile {n_tile})")
         k_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K))
+        wide_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, n_tile=12))
         p_ms = cuda_ms(lambda: combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G, K),
                        reps=5)
         print(f"combine_table_multi_bwd[{name}] N={TRAIN_BATCH} D={LENGTH} "
               f"HW={H * W} G={G} k={K}: max abs err {e:.3e} "
-              f"({e / scale:.2e} x max|plain| {scale:.3f}); "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"({e / scale:.2e} x max|plain| {scale:.3f}); bitwise equal across two "
+              f"launches and at n_tile 2 (default), 12, 6, 4, 1; kernel {k_ms:.4f} ms "
+              f"(n_tile 12: {wide_ms:.4f} ms), plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -682,9 +715,8 @@ def check_combine_table(dev) -> dict:
 
 def check_combine_table_bwd(dev) -> dict:
     """Kernel #6 at the same three shapes: max abs error <= 1e-5 x max|plain|
-    (shared-memory atomics and per-block partials sum in another order than
-    autograd of the plain version); whether two runs agree bitwise is printed
-    (the atomics take no fixed order)."""
+    (64-bit fixed-point sums against float32 ones in autograd's order), and
+    bitwise equal across two launches."""
     gen = torch.Generator().manual_seed(SEED + 1)
     result = {}
     for label, batch, block, slots in STI_SHAPES:
@@ -697,13 +729,15 @@ def check_combine_table_bwd(dev) -> dict:
         e, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
         if not (out_k.shape == out_p.shape and scale > 0 and e <= 1e-5 * scale):
             fail(f"combine_table_bwd max abs err {e} > 1e-5 x {scale} ({label})")
+        if not bitwise_equal(out_k, again):
+            fail(f"combine_table_bwd does not repeat bit for bit ({label})")
         k_ms = cuda_ms(lambda: combine_table_bwd(gd2_t, gsel_t, g, slots, K))
         p_ms = cuda_ms(lambda: combine_table_bwd_reference(gd2_t, gsel_t, g, slots, K),
                        reps=3, warmup=1)
         b_ = sample_combine_bound(batch, slots)
         print(f"combine_table_bwd[{label}] B={batch} D={LENGTH} HW={H * W} G={slots} "
               f"k={K}: max abs err {e:.3e} ({e / scale:.2e} x max|plain| {scale:.3f}), "
-              f"repeats bitwise: {bitwise_equal(out_k, again)}; kernel {k_ms:.4f} ms, "
+              f"bitwise equal across two launches; kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
         if not result:
             result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
@@ -817,6 +851,13 @@ def load_script(name: str):
     return module
 
 
+def stores_equal(a: Path, b: Path) -> bool:
+    """Two served zarr stores hold the same events, bit for bit."""
+    sa, sb = zarrlite.open(a, mode="r"), zarrlite.open(b, mode="r")
+    return sa.array_keys() == sb.array_keys() and all(
+        sa[key][:].tobytes() == sb[key][:].tobytes() for key in sa.array_keys())
+
+
 def serve(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
           required=SERVING_KERNELS) -> tuple:
     infer_torch = load_script("infer_torch")
@@ -854,6 +895,9 @@ def serve(tmp: Path, cfg_path: Path, checkpoint: Path, model: str,
     for name in required:
         if launches[name] <= 0:
             fail(f"the {model} serving run launched no {name} kernel")
+    if not stores_equal(tmp / f"warmup_{model}.zarr", Path(out)):
+        fail(f"{model}: two serving runs on the same input wrote different bits")
+    print(f"{model}: the warm-up run and the measured run wrote bitwise-equal stores")
     RATES[f"{model} serving"] = EVENTS / seconds
     return launches, EVENTS / seconds
 
@@ -891,7 +935,7 @@ def plain_versions():
              (idw_factored_kernel, "combine_table", combine_table_reference),
              (idw_kernel, "idw_knn_single", idw_knn_single_reference),
              (idw_kernel, "idw_knn_chunked", idw_knn_chunked_reference),
-             (idw_kernel, "idw_knn_bwd", idw_knn_bwd_reference),
+             (idw_kernel, "scatter_selection", scatter_selection_reference),
              (layers, "maxpool2_duplicate", maxpool2_duplicate_reference))
     saved = [getattr(module, name) for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -906,8 +950,8 @@ def plain_versions():
 # the kernels a generator forward and backward must launch, by mask
 GRADIENT_KERNELS = {"stis": ("combine_table_multi", "combine_table_multi_bwd"),
                     "sti": ("gauge_topk", "combine_table", "combine_table_bwd"),
-                    "sti single pass": ("idw_knn_single", "idw_knn_bwd"),
-                    "stin": ("idw_knn_chunked",)}
+                    "sti single pass": ("idw_knn_single", "scatter_selection"),
+                    "stin": ("idw_knn_chunked", "scatter_selection")}
 
 
 def check_gradients(dev, mode: str = "stis") -> dict:
@@ -923,8 +967,9 @@ def check_gradients(dev, mode: str = "stis") -> dict:
     ``sti``: every sample under its own block-10 mask, the gauge selection
     inside the forward (#1, #5, #6); ``sti single pass``: the same masks
     through the generic IDW, as ``from_config(cfg, idw_factored=False)``
-    builds it (P = 3200: #8 forward, #10 backward); ``stin``: a stin mask a
-    sample, 67968 points (#9, the scatter backward). Returns the launches."""
+    builds it (P = 3200: #8's range forward, #10 backward); ``stin``: a stin
+    mask a sample, 67968 points (#9 forward, #10 backward). Returns the
+    launches."""
     rng = np.random.default_rng(SEED + 5)
     if mode == "stis":
         flat = np.zeros(H * W, np.float32)
@@ -1112,6 +1157,177 @@ def train(tmp: Path, card: str, dev) -> dict:
     return launches
 
 
+def stis_rate(tmp: Path, dev, label: str, deterministic: bool) -> tuple:
+    """(GAN steps/s, latest.ckpt) of the stis GAN (device_decode off, 5
+    warm-up + 10 timed steps) with cuDNN's deterministic flag as given: the
+    trainer's precision policy sets it, so for ``deterministic`` False the
+    policy is wrapped for this run only (a measurement, not a program
+    switch)."""
+    train_torch = load_script("train_torch")
+    cfg = write_train_tree(tmp)
+    cfg["save_dir"] = str(tmp / f"weights_{label}")
+    cfg_path = tmp / f"train_{label}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    policy = trainer_module.set_precision_policy
+
+    def without_deterministic_cudnn():
+        policy()
+        torch.backends.cudnn.deterministic = False
+
+    if not deterministic:
+        trainer_module.set_precision_policy = without_deterministic_cudnn
+    try:
+        trainer = train_torch.main(train_torch.parse_args(
+            ["--config", str(cfg_path), "--device", dev.type, "--log-level", "WARNING"]))
+        torch.cuda.synchronize()
+        if torch.backends.cudnn.deterministic != deterministic:
+            fail(f"cuDNN's deterministic flag is {torch.backends.cudnn.deterministic}")
+    finally:
+        trainer_module.set_precision_policy = policy
+        set_precision_policy()
+    (s0, t_0), (s1, t_1) = trainer.log_times[0], trainer.log_times[-1]
+    return (s1 - s0) / (t_1 - t_0), Path(cfg["save_dir"]) / "latest.ckpt"
+
+
+def deterministic_cudnn_cost(tmp: Path, card: str, dev) -> None:
+    """The stis GAN step with cuDNN's deterministic algorithms (the precision
+    policy) and without, in turns: on, off, off, on; and whether the two
+    15-step runs of each end with bitwise-equal checkpoints (required with
+    the flag, printed without it)."""
+    rates, ckpts = {True: [], False: []}, {True: [], False: []}
+    for i, det in enumerate((True, False, False, True)):
+        sps, ckpt = stis_rate(tmp, dev, f"cudnn_det{int(det)}_{i}", det)
+        rates[det].append(sps)
+        ckpts[det].append(load_checkpoint_raw(ckpt))
+    same = {det: not same_bits(*ckpts[det]) for det in ckpts}
+    if not same[True]:
+        fail("two 15-step stis GAN runs with deterministic cuDNN ended with different bits")
+    on, off = statistics.mean(rates[True]), statistics.mean(rates[False])
+    RATES["p2igan stis GAN, cuDNN not deterministic"] = off
+    print(f"deterministic cuDNN: stis GAN {on:.4f} steps/s with it ({rates[True]}), "
+          f"{off:.4f} without ({rates[False]}): {(on / off - 1) * 100:+.2f}% on {card}; "
+          f"two 15-step runs end bitwise equal: {same[True]} with it, {same[False]} "
+          f"without")
+
+
+@contextlib.contextmanager
+def generic_idw():
+    """``P2IGenerator.from_config`` builds the generic IDW, as
+    ``from_config(cfg, idw_factored=False)`` does: the trainer then runs
+    #8's range and #10 on sti masks (P = 3200)."""
+    build = P2IGenerator.from_config.__func__
+    P2IGenerator.from_config = classmethod(
+        lambda cls, config, **kw: build(cls, config, **{"idw_factored": False, **kw}))
+    try:
+        yield
+    finally:
+        P2IGenerator.from_config = classmethod(build)
+
+
+def tensors_of(obj, prefix=""):
+    """Every tensor (and other leaf) of a checkpoint payload by its path."""
+    if isinstance(obj, dict):
+        for key, val in obj.items():
+            yield from tensors_of(val, f"{prefix}/{key}")
+    elif isinstance(obj, (list, tuple)):
+        for i, val in enumerate(obj):
+            yield from tensors_of(val, f"{prefix}/{i}")
+    else:
+        yield prefix, obj
+
+
+def same_bits(a, b) -> list:
+    """(path, max abs difference or None) where two checkpoint payloads
+    differ (tensors by their bytes)."""
+    la, lb = dict(tensors_of(a)), dict(tensors_of(b))
+    if la.keys() != lb.keys():
+        return [(key, None) for key in sorted(set(la) ^ set(lb))]
+    diff = []
+    for key, x in la.items():
+        y = lb[key]
+        if isinstance(x, torch.Tensor):
+            same = (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and x.numpy().tobytes() == y.numpy().tobytes())
+        else:
+            same = x == y
+        if not same:
+            diff.append((key, float((x.double() - y.double()).abs().max())
+                         if isinstance(x, torch.Tensor) and x.shape == y.shape else None))
+    return diff
+
+
+REPEAT_STEPS = 5
+
+
+def repeat_configs(tmp: Path) -> dict:
+    """(config, context, kernels the run must launch) of each p2igan training
+    path the repeat phase runs twice."""
+    stin = frame_config(write_train_tree(tmp, STI_TRAIN_CONFIG), "stin")
+    stin["data"]["train"]["device_decode"] = True
+    sti = sti_config(write_train_tree(tmp, STI_TRAIN_CONFIG))
+    return {"stis GAN": (write_train_tree(tmp), contextlib.nullcontext,
+                         ("combine_table_multi", "combine_table_multi_bwd")),
+            "sti GAN": (sti, contextlib.nullcontext, ("combine_table", "combine_table_bwd")),
+            "stin GAN": (stin, contextlib.nullcontext, ("idw_knn_chunked", "scatter_selection")),
+            "generic P<=4096 GAN": (json.loads(json.dumps(sti)), generic_idw,
+                                    ("idw_knn_single", "scatter_selection"))}
+
+
+def train_repeat(tmp: Path, card: str, dev) -> None:
+    """Two training runs of each p2igan path (``REPEAT_STEPS`` hinge-GAN steps
+    at batch 12, same seed and data, through scripts/train_torch.py) end with
+    bitwise-equal generator, critic and optimizer states in latest.ckpt: the
+    stis GAN, the sti GAN, the stin GAN (device_decode) and the generic IDW at
+    P <= 4096 on sti masks (#8's range, #10). First one more run of each under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: every op
+    PyTorch flags as having no deterministic version on the card is
+    printed."""
+    train_torch = load_script("train_torch")
+    for label, (cfg, context, required) in repeat_configs(tmp).items():
+        named = set()
+        cfg["train"].update(iterations=REPEAT_STEPS, log_step=REPEAT_STEPS)
+        tag = "repeat_" + label.replace(" ", "_").replace("<=", "le")
+        payloads = []
+        t0 = time.perf_counter()
+        for run in ("warn", "a", "b"):
+            cfg["save_dir"] = str(tmp / f"weights_{tag}_{run}")
+            cfg_path = tmp / f"train_{tag}_{run}.json"
+            cfg_path.write_text(json.dumps(cfg))
+            argv = ["--config", str(cfg_path), "--device", dev.type, "--log-level", "WARNING"]
+            reset_launches()
+            with context(), warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if run == "warn":
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    trainer = train_torch.main(train_torch.parse_args(argv))
+                    torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            if trainer.global_step != REPEAT_STEPS:
+                fail(f"{label}: the repeat run trained {trainer.global_step} steps")
+            launches = read_launches()
+            for name in required:
+                if launches[name] <= 0:
+                    fail(f"{label}: the repeat run launched no {name}")
+            if run == "warn":
+                named |= {" ".join(str(w.message).split())[:240] for w in caught
+                          if "deterministic" in str(w.message)}
+            else:
+                payloads.append(load_checkpoint_raw(Path(cfg["save_dir"]) / "latest.ckpt"))
+        print(f"repeat {label}: under torch.use_deterministic_algorithms(True, "
+              f"warn_only=True) PyTorch flagged {len(named)} op(s)"
+              + "".join(f"\n  {msg}" for msg in sorted(named)))
+        diff = same_bits(*payloads)
+        n = len(dict(tensors_of(payloads[0])))
+        if diff:
+            fail(f"{label}: two training runs differ in {len(diff)} of {n} checkpoint "
+                 f"entries (path, max abs difference): {diff[:8]}")
+        print(f"repeat {label}: two {REPEAT_STEPS}-step runs at batch {TRAIN_BATCH} end "
+              f"with bitwise-equal checkpoints (all {n} entries: generator, critic, both "
+              f"optimizers); three runs {time.perf_counter() - t0:.1f} s")
+
+
 # -- p2igan on per-sample sti masks --------------------------------------------
 
 def sti_config(cfg: dict) -> dict:
@@ -1173,8 +1389,8 @@ def serve_sti(tmp: Path, card: str, dev) -> dict:
     return launches
 
 
-STI_KERNEL_ROWS = ("gauge_topk_kernel", "combine_table_kernel",
-                   "combine_table_bwd_partial_kernel", "sum_partials_kernel")
+STI_KERNEL_ROWS = ("gauge_topk_kernel", "combine_table_kernel", "combine_table_bwd_kernel",
+                   "row_absmax_kernel", "fixed_finish_kernel")
 
 
 def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
@@ -1303,29 +1519,36 @@ def library_chain_ms(pts4: torch.Tensor, vals: torch.Tensor, backward: bool = Fa
 
 
 def check_idw_knn_single(dev) -> dict:
-    """Kernel #8 at B=12 over the full (16, 128, 128) grid, at P = 3200 (the sti
+    """#8's range (the cell search of #9 since it replaced the brute-force
+    kernel) at B=12 over the full (16, 128, 128) grid, at P = 3200 (the sti
     budget with idw_factored off) and 4096 (its limit), on the four cases of
-    ``knn_points``: bitwise equal to its plain version on the card."""
+    ``knn_points``: out, sel_idx and w_norm bitwise equal to the brute-force
+    plain version on the card; timed without the selection (serving) and with
+    it (a training forward)."""
     result = {}
     for points, block in SINGLE_PASS:
         pts4, pv = knn_points(dev, TRAIN_BATCH, points, block, SEED + 30)
-        out_k = idw_knn_single(pts4, pv, GRID)
-        out_p = idw_knn_single_reference(pts4, pv, GRID)
+        out_k, (sel_k, w_k) = idw_knn_single(pts4, pv, GRID, with_sel=True)
+        out_p, (sel_p, w_p) = idw_knn_single_reference(pts4, pv, GRID, with_sel=True)
         torch.cuda.synchronize()
         e = float((out_k - out_p).abs().max())
         n_diff = int((out_k.view(torch.int32) != out_p.view(torch.int32)).sum())
-        if n_diff:
+        if n_diff or not (torch.equal(sel_k, sel_p) and bitwise_equal(w_k, w_p)) or \
+                not bitwise_equal(idw_knn_single(pts4, pv, GRID)[0], out_k):
             fail(f"idw_knn_single differs from its plain version at P={points}: "
-                 f"{n_diff} entries, max abs err {e}")
+                 f"{n_diff} entries, max abs err {e}; sel_idx "
+                 f"{int((sel_k != sel_p).sum())} entries")
         if bool(out_k[3::4].any()) or not bool(out_k[2::4].abs().max() > 0.1):
             fail("idw_knn_single: an empty sample is not zero, or 2 valid points gave none")
         k_ms = cuda_ms(lambda: idw_knn_single(pts4, pv, GRID), reps=10)
+        sel_ms = cuda_ms(lambda: idw_knn_single(pts4, pv, GRID, with_sel=True), reps=10)
         p_ms = cuda_ms(lambda: idw_knn_single_reference(pts4, pv, GRID), reps=1, warmup=0)
         lib_ms = library_chain_ms(pts4, pv, whole=not result)
         b_ = knn_bound(TRAIN_BATCH, points)
         print(f"idw_knn_single B={TRAIN_BATCH} Q={LENGTH * H * W} P={points} k={K} "
-              f"(random, sti-lattice, 2 valid, empty): bitwise equal, {n_diff} entries "
-              f"differ, max abs err {e:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"(random, sti-lattice, 2 valid, empty): out, sel_idx, w_norm bitwise "
+              f"equal to the brute force; kernel {k_ms:.4f} ms ({sel_ms:.4f} ms with the "
+              f"selection), plain {p_ms:.4f} ms, "
               f"cdist chain {lib_ms:.2f} ms ("
               + ("every query of the batch" if not result else
                  f"one {LIB_CHUNK}-query chunk of one sample")
@@ -1474,49 +1697,87 @@ def check_idw_knn_chunked(dev) -> dict:
           f"{', '.join(ADVERSARIAL)}): out, sel_idx, w_norm bitwise equal to the plain "
           f"version; kernel {adv_ms:.4f} ms for the {len(ADVERSARIAL)} samples")
     pts4, pv = knn_points(dev, TRAIN_BATCH, STI_POINTS, STI_BLOCK, SEED + 32)
-    if not bitwise_equal(idw_knn_chunked(pts4, pv, GRID)[0], idw_knn_single(pts4, pv, GRID)):
+    if not bitwise_equal(idw_knn_chunked(pts4, pv, GRID)[0],
+                         idw_knn_single(pts4, pv, GRID)[0]):
         fail(f"idw_knn_chunked differs from idw_knn_single at P={STI_POINTS}")
     print(f"idw_knn_chunked at P={STI_POINTS} (the four cases): bitwise equal to "
           f"idw_knn_single")
     return result
 
 
-def check_idw_knn_bwd(dev) -> dict:
-    """Kernel #10 at B=12, P = 3200, Q = 262144 on the four cases: each
-    sample within 1e-5 x the largest sum of |terms| a point of that sample
-    receives (the plain backward of |g|: both sum float32 terms in orders of
-    their own, and with fewer than k valid points one point takes a term from
-    every query), whether two runs agree bitwise, and <dv, v> == <g, f(v)>
-    within 1e-5 x <|g|, f(|v|)>."""
+def scatter_error(got, want, mass) -> float:
+    """The largest |got - want| of a sample over its largest sum of |terms|."""
+    return float(((got - want).abs().amax(dim=1) / mass).max())
+
+
+def check_scatter(dev) -> dict:
+    """Kernel #10 (``scatter_selection``: the saved selection's normalized
+    weight x cotangent added into the points) at B=12, P = 3200, Q = 262144 on
+    the four cases of ``knn_points``, from #8's range's selection: each sample
+    within 1e-5 x the largest sum of |terms| a point of it receives, against
+    its plain version (``index_add_``) and against ``idw_knn_bwd_reference``
+    (the TPU kernel's function, the selection recomputed: w * (g / sum w));
+    bitwise equal across two launches and with the queries permuted;
+    <dv, v> == <g, f(v)> within 1e-5 x <|g|, f(|v|)>. ``library_ms`` is
+    ``index_add_`` of the same terms (one call). Then the same on stin's
+    selection (67968 points: the global path, no tile)."""
     pts4, pv = knn_points(dev, TRAIN_BATCH, STI_POINTS, STI_BLOCK, SEED + 33)
-    g = torch.randn((TRAIN_BATCH, LENGTH * H * W),
-                    generator=torch.Generator().manual_seed(SEED + 33)).to(dev)
-    got = idw_knn_bwd(pts4, g, GRID)
-    again = idw_knn_bwd(pts4, g, GRID)
-    want = idw_knn_bwd_reference(pts4, g, GRID)
-    mass = idw_knn_bwd_reference(pts4, g.abs(), GRID).amax(dim=1)
-    err = (got - want).abs().amax(dim=1)
-    e, ratio = float(err.max()), float((err / mass).max())
-    if not (bool((mass > 0).all()) and ratio <= 1e-5):
-        fail(f"idw_knn_bwd: a sample's max abs err is {ratio} x its largest sum of "
-             f"|terms| (errors {err.tolist()}, sums {mass.tolist()})")
-    rhs = float((g.double() * idw_knn_single(pts4, pv, GRID).double()).sum())
+    Q, Pp = LENGTH * H * W, pts4.shape[1]
+    g = torch.randn((TRAIN_BATCH, Q), generator=torch.Generator().manual_seed(SEED + 33)).to(dev)
+    out, (sel, w) = idw_knn_single(pts4, pv, GRID, with_sel=True)
+    got = scatter_selection(sel, w, g, Pp)
+    perm = torch.randperm(Q, generator=torch.Generator().manual_seed(SEED + 34)).to(dev)
+    shuffled = scatter_selection(sel[:, perm].contiguous(), w[:, perm].contiguous(),
+                                 g[:, perm].contiguous(), Pp)
+    if not (bitwise_equal(got, scatter_selection(sel, w, g, Pp))
+            and bitwise_equal(got, shuffled)):
+        fail("scatter_selection does not repeat bit for bit (two launches, queries permuted)")
+    mass = scatter_selection_reference(sel, w, g.abs(), Pp).amax(dim=1)
+    plain = scatter_selection_reference(sel, w, g, Pp)
+    e = float((got - plain).abs().max())
+    ratios = {"index_add_": scatter_error(got, plain, mass),
+              "recomputed": scatter_error(got, idw_knn_bwd_reference(pts4, g, GRID), mass)}
+    if not (bool((mass > 0).all()) and max(ratios.values()) <= 1e-5):
+        fail(f"scatter_selection: a sample's max abs err over its largest sum of |terms| "
+             f"is {ratios}")
+    rhs = float((g.double() * out.double()).sum())
     lhs = float((got.double() * pv.double()).sum())
-    tol = 1e-5 * float((g.abs().double() * idw_knn_single(pts4, pv.abs(), GRID)
+    tol = 1e-5 * float((g.abs().double() * idw_knn_single(pts4, pv.abs(), GRID)[0]
                         .double()).sum())
     if not abs(lhs - rhs) <= tol:
-        fail(f"idw_knn_bwd: <dv, v> {lhs} vs <g, f(v)> {rhs}")
-    k_ms = cuda_ms(lambda: idw_knn_bwd(pts4, g, GRID), reps=10)
-    p_ms = cuda_ms(lambda: idw_knn_bwd_reference(pts4, g, GRID), reps=1, warmup=0)
-    lib_ms = library_chain_ms(pts4, pv, backward=True)
-    b_ = knn_bound(TRAIN_BATCH, STI_POINTS)
-    print(f"idw_knn_bwd B={TRAIN_BATCH} Q={LENGTH * H * W} P={STI_POINTS} k={K}: max abs err "
-          f"{e:.3e}, at most {ratio:.2e} x the sample's largest sum of |terms| (sums "
-          f"{float(mass.min()):.3f} to {float(mass.max()):.3f}), repeats "
-          f"bitwise: {bitwise_equal(got, again)}; <dv, v> - <g, f(v)> = {lhs - rhs:.3e} "
-          f"(limit {tol:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cdist chain + "
-          f"index_add_ {lib_ms:.2f} ms (every query of the batch), "
-          f"{knn_bound_line(TRAIN_BATCH, STI_POINTS, b_)}")
+        fail(f"scatter_selection: <dv, v> {lhs} vs <g, f(v)> {rhs}")
+    k_ms = cuda_ms(lambda: scatter_selection(sel, w, g, Pp))
+    p_ms = cuda_ms(lambda: scatter_selection_reference(sel, w, g, Pp), reps=10)
+    flat = (sel.long() + Pp * torch.arange(TRAIN_BATCH, device=dev)[:, None, None]).reshape(-1)
+    terms = (w * g[:, :, None]).reshape(-1)
+    acc = torch.zeros((TRAIN_BATCH * Pp,), device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, terms), reps=10)
+    n_terms = TRAIN_BATCH * Q * K
+    b_ = bound(4 * (2 * n_terms + TRAIN_BATCH * Q + TRAIN_BATCH * Pp), 2 * n_terms)
+    print(f"scatter_selection B={TRAIN_BATCH} Q={Q} P={STI_POINTS} k={K} (random, "
+          f"sti-lattice, 2 valid, empty): max abs err {e:.3e}; a sample's max abs err at "
+          f"most {ratios['index_add_']:.2e} x its largest sum of |terms| against index_add_, "
+          f"{ratios['recomputed']:.2e} against the recomputed selection (sums "
+          f"{float(mass.min()):.3e} to {float(mass.max()):.3f}); bitwise equal across two "
+          f"launches and with the queries permuted; <dv, v> - <g, f(v)> = {lhs - rhs:.3e} "
+          f"(limit {tol:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}), "
+          f"{b_['bound_ms'] / k_ms:.4f} of it")
+    spts, spv = frame_points(dev, "stin", dict(FRAME_MASKS)["stin"], TRAIN_BATCH, SEED + 31)
+    _, (ssel, sw) = idw_knn_chunked(spts, spv, GRID, with_sel=True)
+    sPp = spts.shape[1]
+    s_got = scatter_selection(ssel, sw, g, sPp)
+    s_mass = scatter_selection_reference(ssel, sw, g.abs(), sPp).amax(dim=1)
+    s_ratio = scatter_error(s_got, scatter_selection_reference(ssel, sw, g, sPp), s_mass)
+    if not (bitwise_equal(s_got, scatter_selection(ssel, sw, g, sPp)) and s_ratio <= 1e-5):
+        fail(f"scatter_selection on stin's selection: repeats "
+             f"{bitwise_equal(s_got, scatter_selection(ssel, sw, g, sPp))}, err {s_ratio}")
+    s_ms = cuda_ms(lambda: scatter_selection(ssel, sw, g, sPp))
+    s_pms = cuda_ms(lambda: scatter_selection_reference(ssel, sw, g, sPp), reps=10)
+    print(f"scatter_selection on stin's selection (B={TRAIN_BATCH}, P={sPp}, the global "
+          f"path): bitwise equal across two launches, at most {s_ratio:.2e} x a sample's "
+          f"largest sum of |terms| from index_add_; kernel {s_ms:.4f} ms, plain "
+          f"{s_pms:.4f} ms")
     return {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_, "library_ms": lib_ms}
 
 
@@ -1573,14 +1834,14 @@ def train_stin(tmp: Path, card: str, dev) -> tuple:
     """The hinge GAN on p2igan_gan_baseline.json with stin masks (batch 12, a
     mask a sample, 67968 points) and ``device_decode`` through
     scripts/train_torch.py: #9 once a step with its selection and once a
-    validation batch without, the scatter backward (``index_add_``), #11 with
+    validation batch without, the scatter backward (#10) once a step, #11 with
     the whole (T, H, W) mask a sample; then the profiled resume."""
     cfg = frame_config(write_train_tree(tmp, STI_TRAIN_CONFIG), "stin")
     cfg["data"]["train"]["device_decode"] = True
     label = "p2igan stin GAN device_decode"
     launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {
-        "idw_knn_chunked": steps + val, "maxpool2_duplicate": 3 * (steps + val),
-        "decode_normalize_mask": None})
+        "idw_knn_chunked": steps + val, "scatter_selection": steps,
+        "maxpool2_duplicate": 3 * (steps + val), "decode_normalize_mask": None})
     summary = json.loads((tmp / f"profile_{label.replace(' ', '_')}" / "summary.json")
                          .read_text())
     total = sum(summary["kernel_ms"].values())
@@ -2142,7 +2403,7 @@ def main() -> int:
                "combine_dense": check_combine_dense(dev),
                "idw_knn_single": check_idw_knn_single(dev),
                "idw_knn_chunked": check_idw_knn_chunked(dev),
-               "idw_knn_bwd": check_idw_knn_bwd(dev),
+               "scatter_selection": check_scatter(dev),
                "mlp_tail_fused": check_mlp_tail(dev),
                "mlp_tail_bwd": check_mlp_tail_bwd(dev),
                "enc0_conv3d_leaky": check_enc0(dev),
@@ -2184,6 +2445,10 @@ def main() -> int:
         paths["p2igan stin training"], sps = train_stin(tmp, card, dev)
         print(f"p2igan stin training: {sps:.4f} GAN steps/s on {card}; phase "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_repeat(tmp, card, dev)
+        deterministic_cudnn_cost(tmp, card, dev)
+        print(f"repeat phase: {time.perf_counter() - t0:.1f} s")
         host_loader_rate(tmp, write_train_tree(tmp, DK_FAMILY["dk"][1]), "stis gauge file")
         for model in DK_FAMILY:
             cfg_path, checkpoint = write_dk_serving(tmp, model)

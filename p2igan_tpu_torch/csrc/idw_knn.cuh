@@ -1,20 +1,17 @@
-// The selection of the generic IDW k-NN, shared by the single-pass forward
-// (#8, idw_knn.cu), the cell search (#9, idw_knn_cells.cu) and the single-pass
-// backward (#10, idw_knn_bwd.cu), so the tie-sensitive arithmetic exists once,
-// as _idw_kernel / _idw_topk_chunk_kernel / _idw_bwd_kernel share it in
-// p2igan_tpu/ops/pallas/idw_kernel.py.
+// The selection arithmetic of the generic IDW k-NN, used by its one forward
+// kernel, the cell search (#9, idw_knn_cells.cu), which also serves the
+// single-pass range of the JAX package (#8), so the tie-sensitive arithmetic
+// exists once, as _idw_kernel / _idw_topk_chunk_kernel / _idw_bwd_kernel share
+// it in p2igan_tpu/ops/pallas/idw_kernel.py.
 //
 // A point is a float4 (x, y, z, penalty): the penalty is 0 for a valid point
 // and 1e30 for an invalid or padding slot. The selection metric is
 // sqrt(((dx*dx + dy*dy) + dz*dz) + penalty), every step rounded to nearest
 // (the library builds with -fmad=false, and the intrinsics spell it out).
 // A query keeps its k best (d, index) pairs in registers, sorted
-// lexicographically. #8 and #10 visit candidates in ascending index, and a
-// candidate enters only when d is strictly below the k-th entry, so an equal
-// distance keeps the lower index: exactly k first-min rounds with the
-// lowest-index tie rule. #9 visits them out of index order, so its entry test
-// (knn_scan_any_order) compares (d, index) pairs; entries move down the list
-// on that order either way, and both select the same k.
+// lexicographically. The search visits points out of index order, so its entry
+// test (knn_scan_any_order) compares (d, index) pairs: the k lexicographically
+// least pairs are exactly k first-min rounds with the lowest-index tie rule.
 
 #pragma once
 
@@ -38,19 +35,6 @@ __device__ __forceinline__ void knn_init(KnnList& l) {
     l.idx[r] = INT_MAX;
   }
   l.worst = __int_as_float(0x7f800000);
-}
-
-// Query q of the (D, H, W) grid: the grid_points() coordinates, x fastest.
-__device__ __forceinline__ void knn_query(const float* __restrict__ lx,
-                                          const float* __restrict__ ly,
-                                          const float* __restrict__ lz, int q,
-                                          int H, int W, float& qx, float& qy,
-                                          float& qz) {
-  const int x = q % W;
-  const int t = q / W;
-  qx = lx[x];
-  qy = ly[t % H];
-  qz = lz[t / H];
 }
 
 __device__ __forceinline__ float knn_distance(float qx, float qy, float qz,
@@ -86,19 +70,7 @@ __device__ __forceinline__ void knn_insert(KnnList& l, float d, int i, int k) {
   l.worst = w;
 }
 
-// Visit points [0, n) of a shared-memory tile whose first point has global
-// index base.
-__device__ __forceinline__ void knn_scan(KnnList& l, float qx, float qy,
-                                         float qz, const float4* s_pts, int n,
-                                         int base, int k) {
-  for (int j = 0; j < n; ++j) {
-    const float d = knn_distance(qx, qy, qz, s_pts[j]);
-    if (d < l.worst) knn_insert(l, d, base + j, k);
-  }
-}
-
-// The cell search (#9, idw_knn_cells.cu) visits points out of index order, so
-// its entry test is lexicographic: (d, index) strictly below the k-th entry.
+// The entry test is lexicographic: (d, index) strictly below the k-th entry.
 // worst_idx carries the k-th entry's index beside l.worst.
 __device__ __forceinline__ int knn_worst_idx(const KnnList& l, int k) {
   int w = l.idx[0];

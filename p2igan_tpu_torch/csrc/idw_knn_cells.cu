@@ -5,7 +5,9 @@
 // backward's scatter.
 //
 // Replaces p2igan_tpu/ops/pallas/idw_kernel.py::_idw_forward_chunked (P >
-// 4096: the masks that vary per frame, 65536 to 98304 points). The TPU kernel
+// 4096: the masks that vary per frame, 65536 to 98304 points) and
+// _idw_forward_single (P <= 4096, #8: the same selection, so the same search
+// serves it; the wrappers keep the JAX package's split). The TPU kernel
 // streams every point past every query in chunks and merges per-chunk top-k
 // lists in XLA; the points are voxels of the query lattice, so a query's k
 // nearest almost always lie within a cell or two of it. Here the points are

@@ -4,8 +4,11 @@ Counterpart of ``p2igan_tpu/inference/driver.py`` (reference
 ``scripts/infer.py:117-275``). Every window of an event (or of a batch of
 events, flattened into one stream) is gathered from the device-resident frames
 by a clamped index table (= repeat-last-frame padding), the generator runs over
-chunks of ``window_batch`` windows in a Python loop, and each chunk's
-predictions are scatter-added into a device accumulator (``index_add_``).
+chunks of ``window_batch`` windows in a Python loop, and each window's
+predictions are added into its frames of a device accumulator, window by
+window in stream order: a fixed order, so the served stores repeat bit for
+bit (``index_add_`` of a chunk, where up to four windows meet in one frame,
+takes no fixed order on CUDA).
 
 Semantics preserved: stride 16 / overlap 12 (step 4), last window padded by
 repeating the final frame, overlap averaging with a 1e-5 weight floor,
@@ -14,7 +17,8 @@ x output_scale then clip >= 0, ``event_%02d`` naming, pass-k running mean
 
 Precision: float32 throughout; TF32 is switched off for cuDNN convolutions
 and matmuls (PyTorch enables it for convolutions by default), as the JAX
-reference computes in float32.
+reference computes in float32, and cuDNN takes deterministic algorithms
+only, so that serving and training repeat bit for bit as the reference does.
 """
 
 from __future__ import annotations
@@ -38,9 +42,12 @@ from ..training.checkpoint import load_generator_state, resolve_checkpoint
 
 
 def set_precision_policy() -> None:
-    """float32 everywhere: no TF32 in cuDNN convolutions or cuBLAS matmuls."""
+    """float32 everywhere (no TF32 in cuDNN convolutions or cuBLAS matmuls),
+    and deterministic cuDNN algorithms (no autotuning among them either)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -146,9 +153,11 @@ class SlidingWindowReconstructor:
         count = np.zeros((E * (T + 1),), np.float32)
         np.add.at(count, tgt.reshape(-1),
                   (tgt.reshape(-1) % (T + 1) < T).astype(np.float32))
+        # a window's frames are one run of its event's slots, its first n
+        # targets (none for a padding window; the rest hit the sentinel)
+        runs = [(int(t[0]), int((t % (T + 1) < T).sum())) for t in tgt]
         dev = masked.device
         win_idx = torch.from_numpy(win_idx).to(dev).long()
-        tgt = torch.from_numpy(tgt).to(dev).long()
         flat_m = masked.reshape(E * T, H, W, C)
         flat_k = masks.reshape(E * T, H, W, C)
         gen = self.generator
@@ -158,9 +167,10 @@ class SlidingWindowReconstructor:
         accum = torch.zeros((E * (T + 1), H, W, C), dtype=torch.float32, device=dev)
         for lo in range(0, win_idx.shape[0], wb):
             idx = win_idx[lo:lo + wb]
-            preds = gen(flat_m[idx], flat_k[idx], **kw)
-            accum.index_add_(0, tgt[lo:lo + wb].reshape(-1),
-                             preds.to(torch.float32).reshape(-1, H, W, C))
+            preds = gen(flat_m[idx], flat_k[idx], **kw).to(torch.float32)
+            for i, (t0, n) in enumerate(runs[lo:lo + wb]):
+                if n:
+                    accum[t0:t0 + n] += preds[i, :n]
         return _overlap_average(accum, torch.from_numpy(count).to(dev), E, T,
                                 self.output_scale)
 

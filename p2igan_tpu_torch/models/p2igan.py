@@ -28,9 +28,9 @@ import logging
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.convs import bilinear_resize
 from ..ops.doconv import DOConv2d
 from ..ops.layers import (AttentionBlock, BasicConvDO, InputBlock, ResBlockDO,
                           UPPos, downsample_duplicate_channels)
@@ -280,7 +280,6 @@ class P2IDiscriminator(nn.Module):
         z = self._branch(self.d3d, x.permute(0, 4, 1, 2, 3), update_stats)
         out3d = z.mean(dim=2)                                     # (B, 1, h'', w'')
         if out3d.shape[-2:] != out2d.shape[-2:]:
-            out3d = F.interpolate(out3d, size=out2d.shape[-2:], mode="bilinear",
-                                  align_corners=False)
+            out3d = bilinear_resize(out3d, out2d.shape[-2:], align_corners=False)
         fused = torch.sigmoid(self.alpha2d) * out2d + out3d
         return fused.reshape(b, -1)

@@ -7,6 +7,7 @@ go to cuDNN / PyTorch's own kernels the same way.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,10 +22,66 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
                     groups=groups)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, align_corners: bool,
+                   device: str) -> torch.Tensor:
+    """(n_out, n_in) float32: row i holds the weights of output i of a
+    bilinear resize along one axis, as PyTorch computes them in float32:
+    align_corners src = i * ((n_in - 1) / (n_out - 1)), else
+    max(0, (n_in / n_out) * (i + 0.5) - 0.5); lambda = src - floor(src), 1 -
+    lambda to the floor, lambda to the next (the floor itself at the edge)."""
+    idx = torch.arange(n_out, dtype=torch.float32)
+    if align_corners:
+        scale = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+        src = idx * torch.tensor(scale, dtype=torch.float32)
+    else:
+        src = torch.tensor(n_in / n_out, dtype=torch.float32) * (idx + 0.5) - 0.5
+        src = torch.clamp(src, min=0.0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    lam = src - i0.to(torch.float32)
+    i1 = torch.clamp(i0 + 1, max=n_in - 1)
+    a = torch.zeros((n_out, n_in), dtype=torch.float32)
+    rows = torch.arange(n_out)
+    a.index_put_((rows, i0), 1.0 - lam, accumulate=True)
+    a.index_put_((rows, i1), lam, accumulate=True)
+    return a.to(device)
+
+
+class _BilinearResize(torch.autograd.Function):
+    """Forward: ``F.interpolate``. Backward: the transposed resize as two
+    matrix products, A_h^T g A_w, in a fixed order: PyTorch's own CUDA
+    backward adds the contributions of every output with atomics in no fixed
+    order (and has no deterministic version), so a gradient through it would
+    not repeat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, size, align_corners):
+        ctx.args = (x.shape[-2:], tuple(size), align_corners)
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        (H, W), (h, w), align_corners = ctx.args
+        dev = str(g.device)
+        a_h = _resize_matrix(H, h, align_corners, dev)
+        a_w = _resize_matrix(W, w, align_corners, dev)
+        return torch.matmul(torch.matmul(a_h.t(), g), a_w), None, None
+
+
+def bilinear_resize(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
+    """``F.interpolate(x, size, mode='bilinear', align_corners)`` on (B, C, H,
+    W); its gradient sums in a fixed order."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _BilinearResize.apply(x, tuple(size), align_corners)
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=align_corners)
+
+
 def bilinear_upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """torch ``Upsample(scale_factor=2, mode='bilinear', align_corners=True)``
-    on (B, C, H, W)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+    on (B, C, H, W) (with align_corners the scale comes from the sizes alone,
+    so this is the same resize to (2H, 2W)); its gradient sums in a fixed
+    order."""
+    return bilinear_resize(x, (2 * x.shape[-2], 2 * x.shape[-1]), True)
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,

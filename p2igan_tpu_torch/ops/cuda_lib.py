@@ -44,23 +44,20 @@ _SIGNATURES = {
     "p2i_gauge_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p2i_combine_table": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                           _F, _I, _P],
-    "p2i_combine_table_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _I, _I, _I, _P],
+    "p2i_combine_table_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "p2i_combine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "p2i_combine_table_multi": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _I, _P],
-    "p2i_combine_table_multi_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _F, _F, _I, _I, _I, _P],
+    "p2i_combine_table_multi_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "p2i_maxpool2_duplicate": [_P, _P, _I, _I, _I, _I, _P],
     "p2i_decode_normalize_mask": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "p2i_dk_mlp_tail": [_P] * 9 + [_I, _I, _I, _P],
     "p2i_dk_mlp_tail_bwd": [_P] * 13 + [_I, _I, _I, _I, _P],
     "p2i_enc0_conv3d_leaky": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "p2i_dec2_conv3d_sigmoid": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "p2i_idw_knn_single": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
     "p2i_idw_cell_build": [_P] * 5 + [_I] * 5 + [_P],
     "p2i_idw_knn_chunked": [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P],
-    "p2i_idw_knn_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
+    "p2i_idw_scatter": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
@@ -153,6 +150,13 @@ def check(rc: int, name: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The current stream of the tensor's device, as a raw pointer."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def fixed_scratch(total: int, rows: int, device) -> torch.Tensor:
+    """Scratch of one order-free sum (``csrc/fixed_sum.cuh``): ``total``
+    64-bit fixed-point totals and flag words, and one max a row; the launcher
+    zeroes it."""
+    return torch.empty((total * 12 + rows * 4,), dtype=torch.uint8, device=device)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor,

@@ -26,6 +26,7 @@ kernel for CUDA tensors (or raises); there is no fallback between the two.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +39,12 @@ _BIG_I32 = int(np.iinfo(np.int32).max)
 MAX_K = 8          # csrc kMaxK
 MAX_CANDIDATES = 64  # csrc kMaxCand: kf * k
 BWD_PIXELS_PER_BLOCK = 128      # csrc/combine_table_multi_bwd.cu kThreads
-BWD_TILE_BYTES = 96 * 1024      # its shared-memory accumulation tile
+# the backwards' shared-memory tile of 64-bit fixed-point totals (8 bytes an
+# entry, csrc/fixed_sum.cuh), within the 227 KB a block may opt in to
+BWD_TILE_BYTES = 192 * 1024
+# #4's default tile: 2 windows at D=16, G=128 (more blocks, and several on an
+# SM), the fastest of 1-12 windows on the H100 (PERF.md)
+BWD_WINDOWS_TILE_BYTES = 32 * 1024
 
 
 def first_min_index(d: torch.Tensor, d_min: torch.Tensor, idx: torch.Tensor,
@@ -269,9 +275,12 @@ def combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G: int, k: int,
 
 def combine_table_multi_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
                             g: torch.Tensor, G: int, k: int, rho: float = 2.0,
-                            tau: float = 0.05) -> torch.Tensor:
+                            tau: float = 0.05, n_tile: Optional[int] = None) -> torch.Tensor:
     """d_tables (N, D, G) of :func:`combine_table_multi` from its output
-    cotangent g (N, D, HW); the selection is recomputed, not saved."""
+    cotangent g (N, D, HW); the selection is recomputed, not saved. The sums
+    are order-free (64-bit fixed point), so the result repeats bit for bit
+    and does not depend on ``n_tile``, the windows a block takes (default: as
+    fit in BWD_WINDOWS_TILE_BYTES)."""
     if gd2_t.device.type == "cpu":
         return combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G, k, rho, tau)
     name = "combine_table_multi_bwd"
@@ -283,20 +292,21 @@ def combine_table_multi_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} does not fit "
                          f"HW={gd2_t.shape[1]}, G={G}")
     sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
-    # windows per block: the accumulation tile (n_tile, D, G) f32 stays within
-    # BWD_TILE_BYTES of shared memory
-    n_tile = min(N, BWD_TILE_BYTES // (4 * D * G))
-    if n_tile < 1:
-        raise ValueError(f"{name}: a (D={D}, G={G}) tile exceeds "
-                         f"{BWD_TILE_BYTES} bytes of shared memory")
-    nblk = -(-HW // BWD_PIXELS_PER_BLOCK)
-    parts = torch.empty((nblk, N, D, G), device=g.device, dtype=torch.float32)
+    # windows per block: the accumulation tile (n_tile, D, G) of 8-byte
+    # totals stays within BWD_TILE_BYTES of shared memory
+    most = BWD_TILE_BYTES // (8 * D * G)
+    if n_tile is None:
+        n_tile = max(1, min(N, most, BWD_WINDOWS_TILE_BYTES // (8 * D * G)))
+    if not 1 <= n_tile <= most:
+        raise ValueError(f"{name}: {n_tile} windows of a (D={D}, G={G}) tile "
+                         f"exceed {BWD_TILE_BYTES} bytes of shared memory")
+    scratch = cuda_lib.fixed_scratch(N * D * G, N, g.device)
     out = torch.empty((N, D, G), device=g.device, dtype=torch.float32)
     with torch.cuda.device(g.device):
         rc = cuda_lib.library().p2i_combine_table_multi_bwd(
             gd2_t.data_ptr(), gsel_t.data_ptr(), g.data_ptr(), sel.data_ptr(),
-            fd2.data_ptr(), parts.data_ptr(), out.data_ptr(), N, D, G, HW, k, kf,
-            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), n_tile, nblk,
+            fd2.data_ptr(), scratch.data_ptr(), out.data_ptr(), N, D, G, HW, k, kf,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), n_tile,
             cuda_lib.stream_of(g))
     cuda_lib.check(rc, name)
     combine_table_multi_bwd.launches += 1
@@ -412,7 +422,8 @@ def combine_table_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
                       g: torch.Tensor, G: int, k: int, rho: float = 2.0,
                       tau: float = 0.05) -> torch.Tensor:
     """d_tables (B, D, G) of :func:`combine_table` from its output cotangent
-    g (B, D, HW); the selection is recomputed per sample, not saved."""
+    g (B, D, HW); the selection is recomputed per sample, not saved. The sums
+    are order-free (64-bit fixed point): the result repeats bit for bit."""
     if gd2_t.device.type == "cpu":
         return combine_table_bwd_reference(gd2_t, gsel_t, g, G, k, rho, tau)
     name = "combine_table_bwd"
@@ -427,20 +438,19 @@ def combine_table_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} does not fit "
                          f"HW={gd2_t.shape[2]}, G={G}")
     sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
-    if 4 * D * G > BWD_TILE_BYTES:
+    if 8 * D * G > BWD_TILE_BYTES:
         raise ValueError(f"{name}: a (D={D}, G={G}) tile exceeds "
                          f"{BWD_TILE_BYTES} bytes of shared memory")
     # strips of BWD_PIXELS_PER_BLOCK pixels a block walks: one at a (D, G) tile
-    # of 16 KB (G = 256), more for a larger tile, zeroed and written once a block
+    # of 32 KB (G = 256), more for a larger tile, zeroed and flushed once a block
     iters = max(1, min(8, (D * G) // 4096))
-    nblk = -(-HW // (BWD_PIXELS_PER_BLOCK * iters))
-    parts = torch.empty((nblk, B, D, G), device=g.device, dtype=torch.float32)
+    scratch = cuda_lib.fixed_scratch(B * D * G, B, g.device)
     out = torch.empty((B, D, G), device=g.device, dtype=torch.float32)
     with torch.cuda.device(g.device):
         rc = cuda_lib.library().p2i_combine_table_bwd(
             gd2_t.data_ptr(), gsel_t.data_ptr(), g.data_ptr(), sel.data_ptr(),
-            fd2.data_ptr(), parts.data_ptr(), out.data_ptr(), B, D, G, HW, k, kf,
-            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), iters, nblk,
+            fd2.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, D, G, HW, k, kf,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), iters,
             cuda_lib.stream_of(g))
     cuda_lib.check(rc, name)
     combine_table_bwd.launches += 1

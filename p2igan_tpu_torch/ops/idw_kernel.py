@@ -2,25 +2,29 @@
 
 Counterpart of ``p2igan_tpu/ops/pallas/idw_kernel.py``: the densification of
 masks that vary per frame (stin, fi, nowcasting), where the observed voxels
-do not factor into gauges x frames. Three kernels:
+do not factor into gauges x frames. The JAX package dispatches on the point
+count: P up to :data:`P_SINGLE_PASS_MAX` takes its single-pass kernel (#8),
+a larger P its chunked kernel (#9). The port keeps that split as two wrappers
+over one CUDA search, and one backward kernel:
 
-* :func:`idw_knn_single` -- P up to :data:`P_SINGLE_PASS_MAX` points: every
-  query's k nearest points and their weighted mean, the sample's points
-  resident in shared memory (``csrc/idw_knn.cu``, kernel #8);
-* :func:`idw_knn_chunked` -- any P: the same selection by an exact search
-  over cells of points (a cell build, then each query visits only the cells
-  whose lower bound is not above its k-th distance), optionally returning the
-  selection (``csrc/idw_knn_cells.cu``, kernel #9; its plain version stays
-  the brute force over every pair);
-* :func:`idw_knn_bwd` -- d_values of the single-pass forward: the selection
-  is recomputed and the normalized weight x cotangent scattered into the
-  points (``csrc/idw_knn_bwd.cu``, kernel #10).
+* :func:`idw_knn_single` -- #8's range, P <= 4096;
+* :func:`idw_knn_chunked` -- #9's range, any P. Both run the exact search over
+  cells of points (``csrc/idw_knn_cells.cu``: a cell build, then each query
+  visits only the cells whose lower bound is not above its k-th distance) and
+  return every query's k nearest points' weighted mean and, when asked, the
+  selection (sel_idx, w_norm). Their plain versions are the brute force over
+  every pair, which the search equals bit for bit;
+* :func:`scatter_selection` -- #10, d_values of either forward: the normalized
+  weight x cotangent of the saved selection added into the points
+  (``csrc/idw_scatter.cu``), summed order-free in 64-bit fixed point, so the
+  gradient repeats bit for bit. The JAX package recomputes the selection for
+  P <= 4096 (``idw_3d_knn_bwd_pallas``) and scatters the saved one above; the
+  port scatters the saved one on both ranges. :func:`idw_knn_bwd_reference`
+  (the selection recomputed) stays as the plain statement of #10's function.
 
-:func:`idw_knn` is the differentiable op: P <= 4096 runs #8 forward and #10
-backward; a larger P runs #9 forward and scatters the forward's own selection
-backward (``index_add_``; the JAX package does that scatter in XLA, outside
-any kernel). The split at 4096 keeps the JAX package's dispatch, so a given P
-takes the same selection and the same backward in both packages.
+:func:`idw_knn` is the differentiable op: the forward keeps its selection
+when the values need a gradient, the backward scatters it. A given P takes
+the same selection in both packages.
 
 Arithmetic (the Pallas kernels', not the XLA fallback's): points are padded
 to ``round_up(max(P, 128), 128)`` slots, invalid and padding slots carry a
@@ -48,7 +52,6 @@ from .idw_factored_kernel import first_min_index
 P_SINGLE_PASS_MAX = 4096
 MAX_K = 8                  # csrc/idw_knn.cuh kKnnMaxK
 PENALTY = 1e30             # invalid / padding slot, added to d2
-BWD_THREADS = 256          # csrc/idw_knn_bwd.cu kThreads
 # (query chunk x points) elements of one distance tensor in the plain versions:
 # 512 MB in float32 (1 GB for the float64 sqrt), so that they run at full
 # width on the card
@@ -140,8 +143,8 @@ def _forward_plain(pts4, vals, out_shape, k, rho, tau, with_sel):
     return out, (None if sel is None else (sel, w_norm))
 
 
-def _check(name, pts4, vals_or_g, out_shape, k, max_pp: Optional[int]):
-    cuda_lib.require_cuda(name, pts4, vals_or_g)
+def _check(name, pts4, vals, out_shape, k, max_pp: Optional[int]):
+    cuda_lib.require_cuda(name, pts4, vals)
     B, Pp = pts4.shape[0], pts4.shape[1]
     Q = out_shape[0] * out_shape[1] * out_shape[2]
     if pts4.shape != (B, Pp, 4) or pts4.data_ptr() % 16:
@@ -150,44 +153,11 @@ def _check(name, pts4, vals_or_g, out_shape, k, max_pp: Optional[int]):
     if not 1 <= k <= MAX_K or B == 0 or Pp == 0 or Pp % 128 or Q == 0:
         raise ValueError(f"{name}: unsupported k={k}, B={B}, Pp={Pp}, Q={Q}")
     if max_pp is not None and Pp > max_pp:
-        raise ValueError(f"{name}: Pp={Pp} points exceed its shared-memory "
-                         f"limit of {max_pp}")
-    return B, Pp, Q
-
-
-# -- #8: single pass ----------------------------------------------------------
-
-def idw_knn_single_reference(pts4, vals, out_shape, k: int = 4, rho: float = 2.0,
-                             tau: float = 0.05):
-    """Plain version of :func:`idw_knn_single`: (B, Q) out."""
-    return _forward_plain(pts4, vals, out_shape, k, rho, tau, False)[0]
-
-
-def idw_knn_single(pts4: torch.Tensor, vals: torch.Tensor,
-                   out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
-                   tau: float = 0.05) -> torch.Tensor:
-    """(B, Q) IDW of the (D, H, W) grid from pts4 (B, Pp, 4) and vals (B, Pp)
-    of :func:`prep_points`, Pp <= 4096, all points of a sample in shared
-    memory."""
-    if pts4.device.type == "cpu":
-        return idw_knn_single_reference(pts4, vals, out_shape, k, rho, tau)
-    name = "idw_knn_single"
-    B, Pp, Q = _check(name, pts4, vals, out_shape, k, P_SINGLE_PASS_MAX)
+        raise ValueError(f"{name}: Pp={Pp} points exceed the single pass's "
+                         f"limit of {max_pp} (the JAX package's split)")
     if vals.shape != (B, Pp):
         raise ValueError(f"{name}: values {tuple(vals.shape)}, expected {(B, Pp)}")
-    lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
-    out = torch.empty((B, Q), device=pts4.device, dtype=torch.float32)
-    with torch.cuda.device(pts4.device):
-        rc = cuda_lib.library().p2i_idw_knn_single(
-            pts4.data_ptr(), vals.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            lz.data_ptr(), out.data_ptr(), B, Pp, *out_shape, k, float(rho),
-            float(tau), int(abs(rho - 2.0) < 1e-6), cuda_lib.stream_of(pts4))
-    cuda_lib.check(rc, name)
-    idw_knn_single.launches += 1
-    return out
-
-
-idw_knn_single.launches = 0
+    return B, Pp, Q
 
 
 # -- #9: an exact search over cells of points ---------------------------------
@@ -306,20 +276,10 @@ def idw_knn_chunked_reference(pts4, vals, out_shape, k: int = 4, rho: float = 2.
     return _forward_plain(pts4, vals, out_shape, k, rho, tau, with_sel)
 
 
-def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
-                    out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
-                    tau: float = 0.05, with_sel: bool = False):
-    """(out (B, Q), selection or None) for any number of points: the card
-    sorts the points into cells (:func:`cell_dims`) and each query scans only
-    the cells whose lower bound does not exceed its k-th distance, an exact
-    search. ``with_sel`` also returns sel_idx (B, Q, k) int32 and w_norm
-    (B, Q, k), the backward's scatter (what a training forward needs)."""
-    if pts4.device.type == "cpu":
-        return idw_knn_chunked_reference(pts4, vals, out_shape, k, rho, tau, with_sel)
-    name = "idw_knn_chunked"
-    B, Pp, Q = _check(name, pts4, vals, out_shape, k, None)
-    if vals.shape != (B, Pp):
-        raise ValueError(f"{name}: values {tuple(vals.shape)}, expected {(B, Pp)}")
+def _knn_cells(name, pts4, vals, out_shape, k, rho, tau, with_sel, max_pp):
+    """One launch of the cell search (``p2i_idw_knn_chunked``): (out, selection
+    or None)."""
+    B, Pp, Q = _check(name, pts4, vals, out_shape, k, max_pp)
     lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
     dev = pts4.device
     dims = cell_dims(*out_shape)
@@ -338,17 +298,60 @@ def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
             float(rho), float(tau), int(abs(rho - 2.0) < 1e-6),
             cuda_lib.stream_of(pts4))
     cuda_lib.check(rc, name)
-    idw_knn_chunked.launches += 1
     return out, (None if sel is None else (sel, w_norm))
+
+
+def idw_knn_chunked(pts4: torch.Tensor, vals: torch.Tensor,
+                    out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
+                    tau: float = 0.05, with_sel: bool = False):
+    """(out (B, Q), selection or None) for any number of points: the card
+    sorts the points into cells (:func:`cell_dims`) and each query scans only
+    the cells whose lower bound does not exceed its k-th distance, an exact
+    search. ``with_sel`` also returns sel_idx (B, Q, k) int32 and w_norm
+    (B, Q, k), the backward's scatter (what a training forward needs)."""
+    if pts4.device.type == "cpu":
+        return idw_knn_chunked_reference(pts4, vals, out_shape, k, rho, tau, with_sel)
+    out = _knn_cells("idw_knn_chunked", pts4, vals, out_shape, k, rho, tau, with_sel,
+                     None)
+    idw_knn_chunked.launches += 1
+    return out
 
 
 idw_knn_chunked.launches = 0
 
 
-def scatter_selection(sel_idx: torch.Tensor, w_norm: torch.Tensor,
-                      g: torch.Tensor, Pp: int) -> torch.Tensor:
-    """d_values (B, Pp) of the chunked forward: ``w_norm * g`` added into the
-    selected points (``index_add_``: its sum order is not fixed on the card)."""
+# -- #8: the single pass's range ----------------------------------------------
+
+def idw_knn_single_reference(pts4, vals, out_shape, k: int = 4, rho: float = 2.0,
+                             tau: float = 0.05, with_sel: bool = False):
+    """Plain version of :func:`idw_knn_single`: the brute force over every
+    (query, point) pair, as :func:`idw_knn_chunked_reference`."""
+    return _forward_plain(pts4, vals, out_shape, k, rho, tau, with_sel)
+
+
+def idw_knn_single(pts4: torch.Tensor, vals: torch.Tensor,
+                   out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
+                   tau: float = 0.05, with_sel: bool = False):
+    """:func:`idw_knn_chunked` for Pp <= :data:`P_SINGLE_PASS_MAX` points, the
+    range of the JAX package's single-pass kernel (#8): the same cell search,
+    counted apart, so that a run shows which of the two ranges it took."""
+    if pts4.device.type == "cpu":
+        return idw_knn_single_reference(pts4, vals, out_shape, k, rho, tau, with_sel)
+    out = _knn_cells("idw_knn_single", pts4, vals, out_shape, k, rho, tau, with_sel,
+                     P_SINGLE_PASS_MAX)
+    idw_knn_single.launches += 1
+    return out
+
+
+idw_knn_single.launches = 0
+
+
+# -- #10: the backward, a scatter of the saved selection ----------------------
+
+def scatter_selection_reference(sel_idx: torch.Tensor, w_norm: torch.Tensor,
+                                g: torch.Tensor, Pp: int) -> torch.Tensor:
+    """Plain version of :func:`scatter_selection`: ``index_add_`` of the
+    float32 terms ``w_norm * g`` (its sum order is not fixed on the card)."""
     B, Q, k = sel_idx.shape
     flat = (sel_idx.long() + Pp * torch.arange(B, device=g.device)[:, None, None])
     dv = torch.zeros((B * Pp,), dtype=torch.float32, device=g.device)
@@ -356,13 +359,45 @@ def scatter_selection(sel_idx: torch.Tensor, w_norm: torch.Tensor,
     return dv.reshape(B, Pp)
 
 
-# -- #10: backward of the single pass -----------------------------------------
+def scatter_selection(sel_idx: torch.Tensor, w_norm: torch.Tensor,
+                      g: torch.Tensor, Pp: int) -> torch.Tensor:
+    """d_values (B, Pp) of either forward from its selection, sel_idx
+    (B, Q, k) int32 and w_norm (B, Q, k) (normalized weights, in [0, 1]), and
+    the cotangent g (B, Q): ``w_norm * g`` added into the selected points. The
+    card sums in 64-bit fixed point (``csrc/idw_scatter.cu``, #10), so the
+    result does not depend on the order of the adds or of the queries."""
+    if g.device.type == "cpu":
+        return scatter_selection_reference(sel_idx, w_norm, g, Pp)
+    name = "scatter_selection"
+    cuda_lib.require_cuda(name, sel_idx, w_norm, g,
+                          dtypes=(torch.int32, torch.float32, torch.float32))
+    B, Q, k = sel_idx.shape
+    if w_norm.shape != (B, Q, k) or g.shape != (B, Q) or not 1 <= k <= MAX_K or \
+            B == 0 or Q == 0 or Pp < 1:
+        raise ValueError(f"{name}: sel {tuple(sel_idx.shape)}, w_norm "
+                         f"{tuple(w_norm.shape)}, cotangent {tuple(g.shape)}, Pp={Pp}")
+    scratch = cuda_lib.fixed_scratch(B * Pp, B, g.device)
+    out = torch.empty((B, Pp), device=g.device, dtype=torch.float32)
+    with torch.cuda.device(g.device):
+        rc = cuda_lib.library().p2i_idw_scatter(
+            sel_idx.data_ptr(), w_norm.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), B, Q, k, Pp, cuda_lib.stream_of(g))
+    cuda_lib.check(rc, name)
+    scatter_selection.launches += 1
+    return out
+
+
+scatter_selection.launches = 0
+
 
 def idw_knn_bwd_reference(pts4, g, out_shape, k: int = 4, rho: float = 2.0,
                           tau: float = 0.05):
-    """Plain version of :func:`idw_knn_bwd`: the selection recomputed, each
-    selected point gets w * (g / (sum(w) + 1e-12)) (the TPU kernel's order of
-    operations), summed with ``index_add_``. Returns (B, Pp)."""
+    """d_values (B, Pp) as the TPU kernel #10 computes them
+    (``idw_3d_knn_bwd_pallas``): the selection recomputed, each selected point
+    gets w * (g / (sum(w) + 1e-12)), summed with ``index_add_``. The port's
+    backward is :func:`scatter_selection` of the saved selection; this stays as
+    the plain statement of #10's function, which the scatter equals to a
+    tolerance (w_norm * g rounds otherwise)."""
     B, Pp, _ = pts4.shape
     grid = _grid(*out_shape, str(pts4.device))
     dv = torch.zeros((B, Pp), dtype=torch.float32, device=pts4.device)
@@ -377,68 +412,28 @@ def idw_knn_bwd_reference(pts4, g, out_shape, k: int = 4, rho: float = 2.0,
     return dv
 
 
-def idw_knn_bwd(pts4: torch.Tensor, g: torch.Tensor,
-                out_shape: Tuple[int, int, int], k: int = 4, rho: float = 2.0,
-                tau: float = 0.05) -> torch.Tensor:
-    """d_values (B, Pp) of :func:`idw_knn_single` from its output cotangent
-    g (B, Q); the selection is recomputed, not saved. Pp <= 4096."""
-    if pts4.device.type == "cpu":
-        return idw_knn_bwd_reference(pts4, g, out_shape, k, rho, tau)
-    name = "idw_knn_bwd"
-    B, Pp, Q = _check(name, pts4, g, out_shape, k, P_SINGLE_PASS_MAX)
-    if g.shape != (B, Q):
-        raise ValueError(f"{name}: cotangent {tuple(g.shape)}, expected {(B, Q)}")
-    lx, ly, lz = _grid_axes(*out_shape, str(pts4.device))
-    # query strips a block walks, so that its (Pp,) accumulation tile is
-    # zeroed and written once for up to 8 x 256 queries
-    iters = min(8, -(-Q // BWD_THREADS))
-    nblk = -(-Q // (BWD_THREADS * iters))
-    parts = torch.empty((nblk, B, Pp), device=g.device, dtype=torch.float32)
-    out = torch.empty((B, Pp), device=g.device, dtype=torch.float32)
-    with torch.cuda.device(g.device):
-        rc = cuda_lib.library().p2i_idw_knn_bwd(
-            pts4.data_ptr(), g.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            lz.data_ptr(), parts.data_ptr(), out.data_ptr(), B, Pp, *out_shape, k,
-            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), iters, nblk,
-            cuda_lib.stream_of(g))
-    cuda_lib.check(rc, name)
-    idw_knn_bwd.launches += 1
-    return out
-
-
-idw_knn_bwd.launches = 0
-
-
 # -- the differentiable op ----------------------------------------------------
 
 class _IDWKnn(torch.autograd.Function):
-    """Forward: #8 (single) or #9 (chunked, keeping its selection when the
-    values need a gradient). Backward: #10, or the scatter of the forward's
+    """Forward: #8's or #9's range of the cell search, keeping the selection
+    when the values need a gradient. Backward: #10, the scatter of that
     selection. The points get no gradient, as in the JAX package's VJP."""
 
     @staticmethod
     def forward(ctx, pts4, vals, out_shape, k, rho, tau, single):
-        ctx.args = (out_shape, k, rho, tau, single, vals.shape[1])
-        if single:
-            ctx.save_for_backward(pts4)
-            return idw_knn_single(pts4, vals, out_shape, k, rho, tau)
-        out, sel = idw_knn_chunked(pts4, vals, out_shape, k, rho, tau,
-                                   with_sel=ctx.needs_input_grad[1])
+        ctx.Pp = vals.shape[1]
+        fwd = idw_knn_single if single else idw_knn_chunked
+        out, sel = fwd(pts4, vals, out_shape, k, rho, tau,
+                       with_sel=ctx.needs_input_grad[1])
         if sel is not None:
             ctx.save_for_backward(*sel)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        out_shape, k, rho, tau, single, Pp = ctx.args
         if not ctx.needs_input_grad[1]:
             return (None,) * 7
-        g = g.contiguous()
-        if single:
-            (pts4,) = ctx.saved_tensors
-            dv = idw_knn_bwd(pts4, g, out_shape, k, rho, tau)
-        else:
-            dv = scatter_selection(*ctx.saved_tensors, g, Pp)
+        dv = scatter_selection(*ctx.saved_tensors, g.contiguous(), ctx.Pp)
         return None, dv, None, None, None, None, None
 
 

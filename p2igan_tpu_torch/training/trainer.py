@@ -322,7 +322,7 @@ class Trainer:
         zero = lambda: torch.zeros((), device=self.device)  # noqa: E731
         running = {"loss": zero(), "rec": zero(), "adv": zero(), "dis": zero()}
         steps = 0
-        last_t, last_step = time.perf_counter(), self.global_step
+        t0 = time.perf_counter()  # train/steps_per_sec: steps of this epoch / time since
         for frames, masked, masks in self._device_prefetch(self.train_loader):
             if self.global_step >= self.max_steps:
                 break  # before the step: a resume at the budget trains nothing
@@ -339,8 +339,7 @@ class Trainer:
                 m = {k: float(v) for k, v in metrics.items()}  # syncs the device
                 now = time.perf_counter()
                 self.log_times.append((self.global_step, now))
-                sps = (self.global_step - last_step) / max(now - last_t, 1e-9)
-                last_t, last_step = now, self.global_step
+                sps = steps / max(now - t0, 1e-6)
                 self.tracker.log_metric("train/step_loss", m["loss"], step=self.global_step)
                 for key in ("rec_loss", "adv_loss", "dis_loss", "pool", "reg"):
                     if key in m:

@@ -123,8 +123,10 @@ def test_pool_dup_kernel_bitwise(dev, shape, offset):
 @pytest.mark.parametrize("D,N,k", [(16, 12, 4), (4, 3, 4), (16, 40, 3), (1, 1, 4)])
 def test_combine_table_multi_bwd_kernel(dev, kind, D, N, k):
     """Kernel #4 against its plain version (autograd of the unpruned plain
-    combine): max abs error <= 1e-5 x max|plain|, because the sums run in
-    another order (shared-memory atomics, then per-block partials)."""
+    combine): max abs error <= 1e-5 x max|plain|, because the kernel sums in
+    64-bit fixed point and the plain version in float32 in autograd's order.
+    The fixed-point sum is order-free: a second launch, and a launch with
+    another number of windows a block (n_tile), give the same bits."""
     rng = np.random.default_rng(5)
     mask = torch.from_numpy(_mask(kind, 40, 24, rng)).to(dev)
     gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
@@ -135,6 +137,10 @@ def test_combine_table_multi_bwd_kernel(dev, kind, D, N, k):
     want = K.combine_table_multi_bwd_reference(*args)
     assert K.combine_table_multi_bwd.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    most = min(N, K.BWD_TILE_BYTES // (8 * D * 128))
+    for n_tile in (None, 1, max(1, most // 2), most):
+        again = K.combine_table_multi_bwd(*args, n_tile=n_tile)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32)), n_tile
 
 
 @pytest.mark.parametrize("shape,mshape", [
@@ -251,9 +257,10 @@ def test_combine_table_kernel_bitwise(dev, D, G, k):
 @pytest.mark.parametrize("D,G,k", [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (16, 128, 3)])
 def test_combine_table_bwd_kernel(dev, D, G, k):
     """Kernel #6 against its plain version (autograd of the unpruned plain
-    combine): max abs error <= 1e-5 x max|plain| (shared-memory atomics, then
-    per-block partials: another order of the sums). Through autograd the
-    output carries a grad_fn and the table receives that gradient."""
+    combine): max abs error <= 1e-5 x max|plain| (64-bit fixed-point sums
+    against float32 ones in autograd's order), and bitwise equal across two
+    launches (the fixed-point sum is order-free). Through autograd the output
+    carries a grad_fn and the table receives that gradient."""
     rng = np.random.default_rng(5)
     bs = 1 if G == 1152 else 4
     masks = torch.from_numpy(_sti_masks(rng, 4, 40, 24, bs)).to(dev)
@@ -265,6 +272,8 @@ def test_combine_table_bwd_kernel(dev, D, G, k):
     want = K.combine_table_bwd_reference(gd2_t, gsel_t, g, G, k)
     assert K.combine_table_bwd.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    again = K.combine_table_bwd(gd2_t, gsel_t, g, G, k)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
     tables = torch.randn(4, D, G, device=dev, requires_grad=True)
     out = K.combine_table(gd2_t, gsel_t, tables, k)
     assert type(out.grad_fn).__name__ == "_CombineTableBackward"
@@ -611,7 +620,7 @@ def test_folded_simple_generator_card_equals_cpu(dev, dec2_fused):
     assert float((got.cpu() - want).abs().max()) <= 1e-5
 
 
-# -- the generic IDW k-NN (csrc/idw_knn.cu, idw_knn_bwd.cu) -------------------
+# -- the generic IDW k-NN (csrc/idw_knn_cells.cu, idw_scatter.cu) -------------
 
 def _knn_inputs(kind, B, shape, P, n_valid, dev, seed=0):
     """prep_points of B samples: random points, or points on the query
@@ -642,17 +651,21 @@ KNN_CASES = [("random", None), ("lattice", None), ("random", 2), ("random", 0)]
 @pytest.mark.parametrize("kind,n_valid", KNN_CASES)
 @pytest.mark.parametrize("B,shape,P", [(3, (2, 17, 17), 300), (2, (16, 128, 128), 4096)])
 def test_idw_knn_single_kernel_bitwise(dev, kind, n_valid, B, shape, P):
-    """Kernel #8 against its plain version on the card: bitwise (one
+    """#8's range (P <= 4096), now the cell search, against the brute-force
+    plain version on the card: out, sel_idx and w_norm bitwise (one
     arithmetic, every rounding spelled out), ties, fewer than k valid points
     and an empty sample included."""
     from p2igan_tpu_torch.ops import idw_kernel as IK
 
     pts4, pv = _knn_inputs(kind, B, shape, P, P if n_valid is None else n_valid, dev)
     before = IK.idw_knn_single.launches
-    got = IK.idw_knn_single(pts4, pv, shape)
-    assert IK.idw_knn_single.launches == before + 1
-    want = IK.idw_knn_single_reference(pts4, pv, shape)
+    got, none = IK.idw_knn_single(pts4, pv, shape)
+    assert IK.idw_knn_single.launches == before + 1 and none is None
+    want, (rsel, rw) = IK.idw_knn_single_reference(pts4, pv, shape, with_sel=True)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    out, (sel, w_norm) = IK.idw_knn_single(pts4, pv, shape, with_sel=True)
+    assert torch.equal(out, got) and torch.equal(sel, rsel)
+    assert torch.equal(w_norm.view(torch.int32), rw.view(torch.int32))
     if n_valid == 0:
         assert not bool(got.any())
 
@@ -746,57 +759,94 @@ def test_idw_knn_chunked_adversarial_bitwise(dev):
 
 @pytest.mark.parametrize("kind", ["random", "lattice"])
 def test_idw_knn_chunked_equals_single(dev, kind):
-    """#9 at P <= 4096 gives #8's output bit for bit (one selection)."""
+    """#9 at P <= 4096 gives the output of #8's function bit for bit: the
+    brute-force plain version's, which the single-pass range also returns."""
     from p2igan_tpu_torch.ops import idw_kernel as IK
 
     shape = (16, 64, 64)
     pts4, pv = _knn_inputs(kind, 3, shape, 3200, 3100, dev, seed=1)
     out, _ = IK.idw_knn_chunked(pts4, pv, shape)
-    assert torch.equal(out, IK.idw_knn_single(pts4, pv, shape))
+    want, _ = IK.idw_knn_single_reference(pts4, pv, shape)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(out, IK.idw_knn_single(pts4, pv, shape)[0])
 
 
 @pytest.mark.parametrize("kind,n_valid", KNN_CASES)
-@pytest.mark.parametrize("B,shape,P", [(3, (2, 17, 17), 300), (2, (16, 128, 128), 3200)])
+@pytest.mark.parametrize("B,shape,P", [(3, (2, 17, 17), 300), (2, (16, 128, 128), 3200),
+                                       (1, (16, 64, 64), 9000)])
 def test_idw_knn_bwd_kernel(dev, kind, n_valid, B, shape, P):
-    """Kernel #10 against its plain version: each sample's max abs error <=
-    1e-5 x the largest sum of |terms| a point of that sample receives (the
-    backward of |g|): both sum float32 terms in orders of their own
-    (shared-memory atomics and per-block partials, index_add_), and with fewer
-    than k valid points one point takes a term from every query. The linearity
-    identity <dv, v> == <g, f(v)> for #10 and for the chunked scatter
-    backward, within 1e-5 x <|g|, f(|v|)>."""
+    """Kernel #10 (``scatter_selection``, the scatter of the forward's saved
+    selection) against its plain version (``index_add_``) and the recomputing
+    statement of the TPU kernel's function (``idw_knn_bwd_reference``): each
+    sample's max abs error <= 1e-5 x the largest sum of |terms| a point of it
+    receives (the backward of |g|), since the kernel sums in 64-bit fixed
+    point and they in float32 (and w_norm * g rounds otherwise than
+    w * (g / sum w)), and with fewer than k valid points one point takes a
+    term from every query. Order-free: a second launch and a launch on the
+    queries in another order give the same bits, on the tile (Pp <= 4096) and
+    the global path (above). The linearity identity <dv, v> == <g, f(v)>,
+    within 1e-5 x <|g|, f(|v|)>."""
     from p2igan_tpu_torch.ops import idw_kernel as IK
 
     pts4, pv = _knn_inputs(kind, B, shape, P, P if n_valid is None else n_valid, dev)
-    Q = shape[0] * shape[1] * shape[2]
+    Pp, Q = pts4.shape[1], shape[0] * shape[1] * shape[2]
     g = torch.from_numpy(np.random.default_rng(9).normal(size=(B, Q))
                          .astype(np.float32)).to(dev)
-    before = IK.idw_knn_bwd.launches
-    got = IK.idw_knn_bwd(pts4, g, shape)
-    assert IK.idw_knn_bwd.launches == before + 1
-    want = IK.idw_knn_bwd_reference(pts4, g, shape)
-    mass = IK.idw_knn_bwd_reference(pts4, g.abs(), shape).amax(dim=1, keepdim=True)
+    out, (sel, w_norm) = IK.idw_knn_chunked(pts4, pv, shape, with_sel=True)
+    before = IK.scatter_selection.launches
+    got = IK.scatter_selection(sel, w_norm, g, Pp)
+    assert IK.scatter_selection.launches == before + 1
+    mass = IK.scatter_selection_reference(sel, w_norm, g.abs(), Pp).amax(dim=1, keepdim=True)
     assert bool((mass > 0).all())
-    assert bool(((got - want).abs() <= 1e-5 * mass).all())
-    out = IK.idw_knn_single(pts4, pv, shape)
-    _, (sel, w_norm) = IK.idw_knn_chunked(pts4, pv, shape, with_sel=True)
-    scat = IK.scatter_selection(sel, w_norm, g, pts4.shape[1])
+    for want in (IK.scatter_selection_reference(sel, w_norm, g, Pp),
+                 IK.idw_knn_bwd_reference(pts4, g, shape)):
+        assert bool(((got - want).abs() <= 1e-5 * mass).all())
+    again = IK.scatter_selection(sel, w_norm, g, Pp)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    perm = torch.randperm(Q, generator=torch.Generator().manual_seed(3)).to(dev)
+    shuffled = IK.scatter_selection(sel[:, perm].contiguous(), w_norm[:, perm].contiguous(),
+                                    g[:, perm].contiguous(), Pp)
+    assert torch.equal(shuffled.view(torch.int32), got.view(torch.int32))
     rhs = float((g.double() * out.double()).sum())
     bound = 1e-5 * float((g.abs().double() *
-                          IK.idw_knn_single(pts4, pv.abs(), shape).double()).sum())
-    for dv in (got, scat):
-        lhs = float((dv.double() * pv.double()).sum())
-        assert abs(lhs - rhs) <= bound
+                          IK.idw_knn_chunked(pts4, pv.abs(), shape)[0].double()).sum())
+    assert abs(float((got.double() * pv.double()).sum()) - rhs) <= bound
+
+
+@pytest.mark.parametrize("Pp", [384, 8192])
+def test_idw_scatter_zero_and_non_finite_cotangents(dev, Pp):
+    """#10 on a cotangent of zeros gives zeros; a NaN or an infinity reaches
+    exactly the points its terms touch, as the float32 plain version makes it
+    (NaN for NaN or for +inf and -inf together), and every other point keeps
+    the sum of its finite terms (tile and global path)."""
+    from p2igan_tpu_torch.ops import idw_kernel as IK
+
+    rng = np.random.default_rng(4)
+    B, Q, k = 2, 5000, 4
+    sel = torch.from_numpy(rng.integers(0, Pp, (B, Q, k)).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.random((B, Q, k)).astype(np.float32)).to(dev)
+    w = (w / w.sum(-1, keepdim=True)).contiguous()
+    zero = IK.scatter_selection(sel, w, torch.zeros(B, Q, device=dev), Pp)
+    assert not bool(zero.any()) and not bool(torch.signbit(zero).any())
+    g = torch.from_numpy(rng.normal(size=(B, Q)).astype(np.float32)).to(dev)
+    g[0, 10], g[0, 20], g[1, 30], g[1, 40] = (float("nan"), float("inf"), float("inf"),
+                                              -float("inf"))
+    got = IK.scatter_selection(sel, w, g, Pp)
+    want = IK.scatter_selection_reference(sel, w, g, Pp)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-5 * float(want[fin].abs().max())
 
 
 def test_idw_knn_wrappers_validate(dev):
     from p2igan_tpu_torch.ops import idw_kernel as IK
 
     pts4, pv = _knn_inputs("random", 2, (2, 8, 8), 5000, 5000, dev)
-    g = torch.zeros(2, 128, device=dev)
-    for fn in (IK.idw_knn_single, IK.idw_knn_bwd):
-        with pytest.raises(ValueError, match="shared-memory"):   # Pp > 4096
-            fn(pts4, pv if fn is IK.idw_knn_single else g, (2, 8, 8))
+    with pytest.raises(ValueError, match="single pass"):   # Pp > 4096
+        IK.idw_knn_single(pts4, pv, (2, 8, 8))
     small, sv = pts4[:, :256].contiguous(), pv[:, :256].contiguous()
     with pytest.raises(ValueError, match="unsupported k"):
         IK.idw_knn_chunked(small, sv, (2, 8, 8), k=9)
@@ -808,14 +858,18 @@ def test_idw_knn_wrappers_validate(dev):
         IK.idw_knn_single(small[:, :, :3].contiguous(), sv, (2, 8, 8))  # rows of 3
     with pytest.raises(ValueError):
         IK.idw_knn_chunked(small, sv[:1], (2, 8, 8))                    # batch mismatch
+    _, (sel, w_norm) = IK.idw_knn_single(small, sv, (2, 8, 8), with_sel=True)
+    g = torch.zeros(2, 128, device=dev)
     with pytest.raises(ValueError):
-        IK.idw_knn_bwd(small, g[:, :64], (2, 8, 8))                     # cotangent shape
+        IK.scatter_selection(sel, w_norm, g[:, :64], 256)               # cotangent shape
+    with pytest.raises(TypeError):
+        IK.scatter_selection(sel.long(), w_norm, g, 256)
 
 
 @pytest.mark.parametrize("P", [2048, 4480])
 def test_generic_generator_gradients_on_the_card(dev, P):
     """A small generator on per-frame masks, forward and backward on the card
-    (P <= 4096: #8 and #10; above: #9 and its scatter): every parameter gets a
+    (P <= 4096: #8's range, above: #9's; #10 the backward of both): every parameter gets a
     gradient, the output matches the CPU path within 1e-5 and input.*'s
     gradients within 1e-4 x max."""
     from p2igan_tpu_torch.data.masks import create_mask_np
@@ -835,12 +889,12 @@ def test_generic_generator_gradients_on_the_card(dev, P):
         m = torch.from_numpy(masks).to(d)
         f = torch.from_numpy(frames).to(d)
         before = (IK.idw_knn_single.launches, IK.idw_knn_chunked.launches,
-                  IK.idw_knn_bwd.launches)
+                  IK.scatter_selection.launches)
         out = gen(f * m, m)
         (out - f).abs().mean().backward()
         after = (IK.idw_knn_single.launches, IK.idw_knn_chunked.launches,
-                 IK.idw_knn_bwd.launches)
-        want = (0, 0, 0) if d == "cpu" else ((1, 0, 1) if P <= 4096 else (0, 1, 0))
+                 IK.scatter_selection.launches)
+        want = (0, 0, 0) if d == "cpu" else ((1, 0, 1) if P <= 4096 else (0, 1, 1))
         assert tuple(a - b for a, b in zip(after, before)) == want
         outs[str(d)] = out.detach().cpu()
         grads[str(d)] = {n: p.grad.cpu() for n, p in gen.named_parameters()}

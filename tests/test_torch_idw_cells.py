@@ -183,11 +183,24 @@ def _case(name):
     if name == "duplicates":   # each coordinate three times, at different indices
         base = rng.random((1, 100, 3))
         return _points(np.concatenate([base, base[:, ::-1], base], axis=1))
+    if name == "rounded tie":
+        # query (x 15, y 12, z 1) has three near points and, 4th, a tie of two
+        # at one float32 distance: point 1 in its own cell (visited first) and
+        # point 0 alone in the next cell along x. Point 0's exact distance is
+        # above the rounded one, so only a bound rounded as knn_distance rounds
+        # lets its cell in, and the lower index wins the tie as in the brute
+        # force; a bound taken more exactly (in float64) drops it.
+        lx, ly, lz = IK._grid_axes(*SHAPE, "cpu")
+        q = np.array([lx[15], ly[12], lz[1]], np.float32)
+        by = np.float32(0.52305317)
+        rows = [[np.float32(0.6679461), by, q[2]], [np.float32(0.6364018), by, q[2]],
+                q + [0.001, 0, 0], q + [0, 0.002, 0], q + [-0.003, 0, 0]]
+        return _points(np.array(rows, np.float32)[None])
     raise KeyError(name)
 
 
 CASES = ["z ties", "xy ties", "fi-like", "2 valid", "empty", "one cell",
-         "outside [0, 1]", "duplicates"]
+         "outside [0, 1]", "duplicates", "rounded tie"]
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -121,7 +121,7 @@ def test_forward_matches_pallas_and_xla(kind, P, n_valid):
     out, (sel, w_norm) = tkern.idw_knn_chunked_reference(pts4, pv, SHAPE)
     assert np.array_equal(sel[0].numpy(), np.asarray(jsel))
     np.testing.assert_allclose(w_norm[0].numpy(), np.asarray(jw), rtol=0, atol=1e-6)
-    single = tkern.idw_knn_single_reference(pts4, pv, SHAPE)
+    single, _ = tkern.idw_knn_single_reference(pts4, pv, SHAPE)
     assert torch.equal(single, out)  # the two plain versions: one arithmetic
 
 
@@ -144,9 +144,10 @@ def test_fewer_than_k_valid_and_empty_match_the_interpreted_kernel(P, n_valid):
 
 @pytest.mark.parametrize("P", [300, 4200])
 def test_gradients_match_jax_grad_of_the_pallas_op(P):
-    """d_values against ``jax.grad`` of ``idw_3d_knn_pallas``: at P <= 4096 the
-    plain version of kernel #10 (the selection recomputed), above it the
-    scatter of the chunked forward's own selection."""
+    """d_values against ``jax.grad`` of ``idw_3d_knn_pallas`` (at P <= 4096 its
+    kernel #10 recomputes the selection, above it JAX scatters the chunked
+    forward's): the port scatters the forward's own selection on both ranges
+    (:func:`scatter_selection`, index_add_ on the CPU)."""
     shape = (2, 8, 8)
     pts, vals, valid = _case("lattice" if P == 300 else "random", P, P - 20, seed=5)
     cot = np.random.default_rng(6).normal(size=shape).astype(np.float32)
@@ -213,3 +214,37 @@ def test_plain_backward_equals_autograd_of_the_plain_forward():
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-6 * scale
     assert float((scat - want).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("kind,P,n_valid", [("lattice", 300, 300), ("random", 1000, 2)])
+def test_single_pass_scatter_matches_jax_grad_of_the_pallas_op(kind, P, n_valid):
+    """The P <= 4096 backward is now a scatter of the forward's saved
+    selection (``scatter_selection``, kernel #10 on the card, ``index_add_``
+    here) and still equals ``jax.grad`` of ``idw_3d_knn_pallas``, whose single
+    pass kernel #10 recomputes the selection: ties everywhere, and fewer than
+    k valid points (every query then takes invalid slots of weight ~1e-30),
+    per sample of a batch of two, atol 1e-5 x max|gradient|. The same scatter
+    equals the recomputing plain version of #10, ``idw_knn_bwd_reference``."""
+    shape = (2, 8, 8)
+    cases = [_case(kind, P, n_valid, seed=s) for s in (11, 12)]
+    cots = np.random.default_rng(13).normal(size=(2,) + shape).astype(np.float32)
+    pts4, pv = tkern.prep_points(_t(np.stack([c[0] for c in cases])),
+                                 _t(np.stack([c[1] * c[2] for c in cases])),
+                                 _t(np.stack([c[2] for c in cases])))
+    out, (sel, w_norm) = tkern.idw_knn_single(pts4, pv, shape, with_sel=True)
+    g = _t(cots.reshape(2, -1))
+    got = tkern.scatter_selection(sel, w_norm, g, pts4.shape[1])
+    recomputed = tkern.idw_knn_bwd_reference(pts4, g, shape)
+    for b, (pts, vals, valid) in enumerate(cases):
+        def loss(v):
+            return jnp.sum(jkern.idw_3d_knn_pallas(jnp.asarray(pts), v,
+                                                   jnp.asarray(valid), shape) * cots[b])
+
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(jax.grad(loss)(jnp.asarray(vals * valid)))
+        scale = np.abs(want).max()
+        assert scale > 0
+        np.testing.assert_allclose(got[b, :P].numpy(), want, rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(got[b].numpy(), recomputed[b].numpy(), rtol=0,
+                                   atol=1e-6 * scale)
+    assert not bool(got[:, P:].any())  # padding slots: never selected here
