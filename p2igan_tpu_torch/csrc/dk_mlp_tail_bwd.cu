@@ -15,10 +15,12 @@
 //     its partial, and doff[j] is written as a per-block partial every j;
 //   - a second kernel sums the partials over the blocks in block order, so a
 //     training run repeats bit for bit.
-// Shared memory holds fc2, fc3, the two (h, h) accumulators (160 KB at
-// h = 100) and two (h, 64) activation tiles; that leaves no room for the phi
-// tile, so relu(phi + off[j]) is rebuilt from device memory (the L2 holds all
-// of phi) twice per j. Per j the block runs six tile products
+// Shared memory holds fc2, fc3 (rows padded to the odd stride h + 1, so the
+// transposed reads of a warp fall on distinct banks), the two (h, h)
+// accumulators (160 KB at h = 100) and two (h, 64) activation tiles; that
+// leaves no room for the phi tile, so relu(phi + off[j]) is rebuilt from
+// device memory (the L2 holds all of phi) twice per j, row-fastest, with
+// float4 loads where h % 4 == 0. Per j the block runs six tile products
 // (dk_mlp_tile.cuh), each operand stored once and read through strides:
 //   X = h1                      ; Y = h2 = relu(X fc2 + b2)
 //   a3 = Y fc3 + b3, h3 = relu  ; dfc4 += h3^T g ; X = da3 = g fc4 [h3 > 0]
@@ -33,6 +35,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "dk_mlp_tile.cuh"
 
 namespace {
@@ -45,15 +49,36 @@ constexpr int kTM = kRows / kTY;                  // 4 rows a thread
 constexpr int kTW = (kMaxHidden + kTY - 1) / kTY;  // 7 weight-gradient rows a thread
 
 // dst[k * kRS + r] = relu(phi[p0 + r, k] + offj[k]); rows past HW are zero.
+// Row r is the fast index, so the shared stores of a warp fall on 32 banks
+// and no thread divides; float4 loads where h % 4 == 0 and phi is aligned.
+template <bool kVec4>
 __device__ __forceinline__ void load_h1(float* dst, const float* __restrict__ phi,
                                         const float* __restrict__ offj, int p0,
                                         int HW, int h) {
-  for (int e = threadIdx.x; e < kRows * h; e += kThreads) {
-    const int r = e / h;
-    const int k = e - r * h;
+  constexpr int kRowBits = 6;
+  static_assert(kRows == 1 << kRowBits, "kRows is a power of two");
+  const int groups = kVec4 ? h / 4 : h;
+  for (int e = threadIdx.x; e < groups * kRows; e += kThreads) {
+    const int r = e & (kRows - 1);
+    const int c = e >> kRowBits;
     const int p = p0 + r;
-    dst[k * kRS + r] =
-        p < HW ? fmaxf(phi[static_cast<size_t>(p) * h + k] + offj[k], 0.0f) : 0.0f;
+    if (kVec4) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p < HW) {
+        const float4 x = reinterpret_cast<const float4*>(phi + static_cast<size_t>(p) * h)[c];
+        const float4 o = reinterpret_cast<const float4*>(offj)[c];
+        v = make_float4(fmaxf(x.x + o.x, 0.0f), fmaxf(x.y + o.y, 0.0f),
+                        fmaxf(x.z + o.z, 0.0f), fmaxf(x.w + o.w, 0.0f));
+      }
+      float* d = dst + 4 * c * kRS + r;
+      d[0] = v.x;
+      d[kRS] = v.y;
+      d[2 * kRS] = v.z;
+      d[3 * kRS] = v.w;
+    } else {
+      dst[c * kRS + r] =
+          p < HW ? fmaxf(phi[static_cast<size_t>(p) * h + c] + offj[c], 0.0f) : 0.0f;
+    }
   }
 }
 
@@ -94,6 +119,7 @@ __device__ __forceinline__ void reduce_columns(float* red, const float (&v)[kTN]
   }
 }
 
+template <bool kVec4>
 __global__ void __launch_bounds__(kThreads, 1)
 dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ off,
                        const float* __restrict__ g, const float* __restrict__ fc2,
@@ -103,9 +129,11 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
                        float* __restrict__ w_parts, int HW, int J, int h) {
   extern __shared__ float smem[];
   const int hh = h * h;
-  float* fc2s = smem;                  // (h, h) as (in, out)
-  float* fc3s = fc2s + hh;
-  float* d2s = fc3s + hh;              // dfc2 accumulator
+  const int ws = h + 1;                // odd row stride: the transposed reads
+                                       // of a warp fall on distinct banks
+  float* fc2s = smem;                  // (h, ws) as (in, out)
+  float* fc3s = fc2s + h * ws;
+  float* d2s = fc3s + h * ws;          // dfc2 accumulator
   float* d3s = d2s + hh;               // dfc3 accumulator
   float* X = d3s + hh;                 // (h, kRS) tiles, [column * kRS + row]
   float* Y = X + h * kRS;
@@ -120,8 +148,12 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
   const int tx = tid - ty * kTX;
   const int p0 = blockIdx.x * kRows;
 
-  load_vec(fc2s, fc2, hh);
-  load_vec(fc3s, fc3, hh);
+  for (int i = tid; i < hh; i += kThreads) {
+    const int k = i / h;
+    const int d = k * ws + i - k * h;
+    fc2s[d] = fc2[i];
+    fc3s[d] = fc3[i];
+  }
   load_vec(b2s, b2, h);
   load_vec(b3s, b3, h);
   load_vec(fc4s, fc4, h);
@@ -138,7 +170,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 
   for (int j = 0; j < J; ++j) {
     const float* offj = off + static_cast<size_t>(j) * h;
-    load_h1(X, phi, offj, p0, HW, h);
+    load_h1<kVec4>(X, phi, offj, p0, HW, h);
     if (tid < kRows) {
       gs[tid] = p0 + tid < HW ? g[static_cast<size_t>(j) * HW + p0 + tid] : 0.0f;
     }
@@ -146,7 +178,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 
     // Y = h2 = relu(h1 fc2 + b2)
     float acc[kTM][kTN];
-    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc2s, h, 1, kRows, h, h, ty, tx, nullptr);
+    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc2s, ws, 1, kRows, h, h, ty, tx, nullptr);
 #pragma unroll
     for (int jn = 0; jn < kTN; ++jn) {
       const int n = tx + kTX * jn;
@@ -161,7 +193,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
     __syncthreads();
 
     // h3 = relu(h2 fc3 + b3); dfc4 += h3^T g; X = da3 = g fc4 [h3 > 0]
-    tile_gemm<kTM, kTN, false>(acc, Y, 1, kRS, fc3s, h, 1, kRows, h, h, ty, tx, nullptr);
+    tile_gemm<kTM, kTN, false>(acc, Y, 1, kRS, fc3s, ws, 1, kRows, h, h, ty, tx, nullptr);
 #pragma unroll
     for (int jn = 0; jn < kTN; ++jn) {
       const int n = tx + kTX * jn;
@@ -184,7 +216,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 
     // dfc3 += h2^T da3; da2 = (da3 fc3^T) [h2 > 0]
     weight_grad(d3s, Y, X, h, ty, tx);
-    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc3s, 1, h, kRows, h, h, ty, tx, nullptr);
+    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc3s, 1, ws, kRows, h, h, ty, tx, nullptr);
 #pragma unroll
     for (int jn = 0; jn < kTN; ++jn) {
       const int n = tx + kTX * jn;
@@ -208,12 +240,12 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
         for (int i = 0; i < kTM; ++i) X[n * kRS + ty + kTY * i] = acc[i][jn];
       }
     }
-    load_h1(Y, phi, offj, p0, HW, h);
+    load_h1<kVec4>(Y, phi, offj, p0, HW, h);
     __syncthreads();
 
     // dfc2 += h1^T da2; da1 = (da2 fc2^T) [h1 > 0]; dphi += da1; doff[j] partial
     weight_grad(d2s, Y, X, h, ty, tx);
-    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc2s, 1, h, kRows, h, h, ty, tx, nullptr);
+    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc2s, 1, ws, kRows, h, h, ty, tx, nullptr);
     float col[kTN];
 #pragma unroll
     for (int jn = 0; jn < kTN; ++jn) {
@@ -283,15 +315,17 @@ extern "C" int p2i_dk_mlp_tail_bwd(const float* phi, const float* off, const flo
       nblk != (HW + kRows - 1) / kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(4) * h * h + 2 * h * kRS + kTY * h + 3 * h + kRows);
-  cudaError_t err = cudaFuncSetAttribute(dk_mlp_tail_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = sizeof(float) * (static_cast<size_t>(2) * h * (h + 1) + 2 * h * h +
+                                       2 * h * kRS + kTY * h + 3 * h + kRows);
+  const bool vec4 = h % 4 == 0 && reinterpret_cast<uintptr_t>(phi) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(off) % 16 == 0;
+  auto kernel = vec4 ? dk_mlp_tail_bwd_kernel<true> : dk_mlp_tail_bwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dk_mlp_tail_bwd_kernel<<<nblk, kThreads, smem, s>>>(
-      phi, off, g, fc2, b2, fc3, b3, fc4, dphi, doff_parts, w_parts, HW, J, h);
+  kernel<<<nblk, kThreads, smem, s>>>(phi, off, g, fc2, b2, fc3, b3, fc4, dphi, doff_parts,
+                                      w_parts, HW, J, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_off = J * h;

@@ -100,7 +100,7 @@ def fwd_shared_bytes(h: int) -> int:
 def bwd_shared_bytes(h: int) -> int:
     """Dynamic shared memory of the backward kernel (csrc/dk_mlp_tail_bwd.cu)."""
     rows, stride = BWD_PIXELS_PER_BLOCK, BWD_PIXELS_PER_BLOCK + 4
-    return 4 * (4 * h * h + 2 * h * stride + 16 * h + 3 * h + rows)
+    return 4 * (2 * h * (h + 1) + 2 * h * h + 2 * h * stride + 16 * h + 3 * h + rows)
 
 
 def _mlp_tail_cuda(phi_part, offsets, fc2, b2, fc3, b3, fc4, b4):
