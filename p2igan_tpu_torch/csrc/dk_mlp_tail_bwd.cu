@@ -15,13 +15,10 @@
 //     its partial, and doff[j] is written as a per-block partial every j;
 //   - a second kernel sums the partials over the blocks in block order, so a
 //     training run repeats bit for bit.
-// Shared memory holds fc2, fc3 (rows padded to the odd stride h + 1, so the
-// transposed reads of a warp fall on distinct banks), the two (h, h)
-// accumulators (160 KB at h = 100) and two (h, 64) activation tiles; that
-// leaves no room for the phi tile, so relu(phi + off[j]) is rebuilt from
-// device memory (the L2 holds all of phi) twice per j, row-fastest, with
-// float4 loads where h % 4 == 0. Per j the block runs six tile products
-// (dk_mlp_tile.cuh), each operand stored once and read through strides:
+// Per j the block runs six tile products, the two recomputed ones on the
+// tensor cores in 3xTF32 (dk_mlp_mma.cuh: float32 accuracy, fixed order), the
+// other four still on the CUDA cores (frag_fma), every operand stored once
+// in a swizzled (rows, 104) tile and read plain or transposed:
 //   X = h1                      ; Y = h2 = relu(X fc2 + b2)
 //   a3 = Y fc3 + b3, h3 = relu  ; dfc4 += h3^T g ; X = da3 = g fc4 [h3 > 0]
 //   dfc3 += Y^T X               ; dh2 = X fc3^T  ; da2 = dh2 [h2 > 0]
@@ -29,92 +26,132 @@
 //   da1 = dh1 [h1 > 0]          ; dphi += da1    ; doff[j] = column sums of da1
 //
 // Bound on the H100: operations, six products of 2 h^2 flops per (j, pixel):
-// J * HW * (12 h^2 + 10 h), 3.8e11 at J = 192, HW = 16384, h = 100, against
-// 67 TFLOP/s float32. Bytes: phi, g and dphi once (25.7 MB) plus the partials
-// (20 MB each way at 256 blocks).
+// J * HW * (12 h^2 + 10 h), 3.8e11 at J = 192, HW = 16384, h = 100, 5.7 ms
+// against 67 TFLOP/s float32; the three TF32 passes would take 2.3 ms at the
+// 495 TFLOP/s of the tensor cores. Bytes: phi, g and dphi once (25.7 MB) plus
+// the partials (20 MB each way at 256 blocks).
+//
+// Tiling. The hidden width is padded to 104 (13 n-tiles of 8) with zeros, so
+// padded lanes add exact zeros. Shared memory (229,472 bytes at every h <=
+// 104): fc2 and fc3 (86.5 KB), the dfc2 and dfc3 accumulators (86.5 KB), two
+// (64, 104) activation tiles (53 KB) and the column sums; that is one block
+// of 8 warps per SM, 256 blocks of 64 pixels at HW = 16384, 1.94 waves on 132
+// SMs. No room is left for a phi tile, so h1 = relu(phi + off[j]) is rebuilt
+// from device memory (the L2 holds phi) twice per j, a warp a row, with
+// float4 loads where h % 4 == 0. The four (64, 104) products give warp w rows
+// 16 (w % 4) .. + 15 and n-tiles 0-6 (w < 4) or 7-12; the two (104, 104)
+// weight-gradient products give warp w < 7 rows 16 w .. + 15 of the
+// accumulator, all 13 n-tiles (warp 7 waits), read from and written back to
+// shared memory around the product.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "dk_mlp_tile.cuh"
+#include "dk_mlp_mma.cuh"
 
 namespace {
 
-using namespace dkmlp;
+using namespace dkmma;
 
-constexpr int kRows = 64;                         // pixels per block
-constexpr int kRS = kRows + 4;                    // row stride of the (h, kRows) tiles
-constexpr int kTM = kRows / kTY;                  // 4 rows a thread
-constexpr int kTW = (kMaxHidden + kTY - 1) / kTY;  // 7 weight-gradient rows a thread
+constexpr int kRows = 64;                  // pixels per block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMTiles = kRows / 16;        // 4 row tiles of the (64, 104) products
+constexpr int kNT = 7;                     // n-tiles a warp of those owns (or 6)
+constexpr int kWNT = kHP / 8;              // 13 n-tiles of a weight-gradient row tile
+constexpr int kWMTiles = (kHP + 15) / 16;  // 7 row tiles of the weight gradients
+constexpr int kSmemFloats = 4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 3 * kHP + kRows;
+static_assert(kThreads / 32 == 2 * kMTiles, "two warps a row tile");
+static_assert(kWMTiles <= kWarps, "a weight-gradient row tile a warp");
 
-// dst[k * kRS + r] = relu(phi[p0 + r, k] + offj[k]); rows past HW are zero.
-// Row r is the fast index, so the shared stores of a warp fall on 32 banks
-// and no thread divides; float4 loads where h % 4 == 0 and phi is aligned.
+// dst (kRows, kS) swizzled = relu(phi[p0 + r, k] + offj[k]); columns past h
+// and rows past HW are zero. A warp a row.
 template <bool kVec4>
 __device__ __forceinline__ void load_h1(float* dst, const float* __restrict__ phi,
                                         const float* __restrict__ offj, int p0,
                                         int HW, int h) {
-  constexpr int kRowBits = 6;
-  static_assert(kRows == 1 << kRowBits, "kRows is a power of two");
-  const int groups = kVec4 ? h / 4 : h;
-  for (int e = threadIdx.x; e < groups * kRows; e += kThreads) {
-    const int r = e & (kRows - 1);
-    const int c = e >> kRowBits;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kWarps) {
     const int p = p0 + r;
+    const float* row = phi + static_cast<size_t>(p) * h;
     if (kVec4) {
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (p < HW) {
-        const float4 x = reinterpret_cast<const float4*>(phi + static_cast<size_t>(p) * h)[c];
-        const float4 o = reinterpret_cast<const float4*>(offj)[c];
-        v = make_float4(fmaxf(x.x + o.x, 0.0f), fmaxf(x.y + o.y, 0.0f),
-                        fmaxf(x.z + o.z, 0.0f), fmaxf(x.w + o.w, 0.0f));
+      for (int c = 4 * lane; c < kHP; c += 128) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (p < HW && c < h) {
+          const float4 x = *reinterpret_cast<const float4*>(row + c);
+          const float4 o = *reinterpret_cast<const float4*>(offj + c);
+          v = make_float4(fmaxf(x.x + o.x, 0.0f), fmaxf(x.y + o.y, 0.0f),
+                          fmaxf(x.z + o.z, 0.0f), fmaxf(x.w + o.w, 0.0f));
+        }
+        *reinterpret_cast<float4*>(dst + sw(r, c)) = v;
       }
-      float* d = dst + 4 * c * kRS + r;
-      d[0] = v.x;
-      d[kRS] = v.y;
-      d[2 * kRS] = v.z;
-      d[3 * kRS] = v.w;
     } else {
-      dst[c * kRS + r] =
-          p < HW ? fmaxf(phi[static_cast<size_t>(p) * h + c] + offj[c], 0.0f) : 0.0f;
-    }
-  }
-}
-
-// W[m * h + n] += sum_r Y[m * kRS + r] * X[n * kRS + r]  (activations^T times
-// cotangents over the block's rows); every element has one owner thread.
-__device__ __forceinline__ void weight_grad(float* W, const float* Y, const float* X,
-                                            int h, int ty, int tx) {
-  float acc[kTW][kTN];
-  tile_gemm<kTW, kTN, false>(acc, Y, kRS, 1, X, 1, kRS, h, h, kRows, ty, tx, nullptr);
-#pragma unroll
-  for (int i = 0; i < kTW; ++i) {
-    const int m = ty + kTY * i;
-    if (m < h) {
-#pragma unroll
-      for (int jn = 0; jn < kTN; ++jn) {
-        const int n = tx + kTX * jn;
-        if (n < h) W[m * h + n] += acc[i][jn];
+      for (int c = lane; c < kHP; c += 32) {
+        dst[sw(r, c)] = p < HW && c < h ? fmaxf(row[c] + offj[c], 0.0f) : 0.0f;
       }
     }
   }
 }
 
-// dst[n] = sum over the kTY row owners, in order, of their column sums.
-__device__ __forceinline__ void reduce_columns(float* red, const float (&v)[kTN],
-                                               float* __restrict__ dst, int h,
-                                               int ty, int tx) {
-  __syncthreads();
+// D (kHP, kS) += Hs^T Ds over the block's kRows rows: warp w < kWMTiles owns
+// accumulator rows 16 w .. 16 w + 15 (those below kHP) and all kWNT n-tiles.
+__device__ __forceinline__ void weight_grad(float* D, const float* Hs, const float* Ds,
+                                            int warp) {
+  if (warp >= kWMTiles) return;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = 16 * warp;
+  const bool rows_hi = m0 + 8 < kHP;
+  float c[kWNT][4];
 #pragma unroll
-  for (int jn = 0; jn < kTN; ++jn) {
-    const int n = tx + kTX * jn;
-    if (n < h) red[ty * h + n] = v[jn];
+  for (int i = 0; i < kWNT; ++i) {
+    const float2 lo = *reinterpret_cast<const float2*>(D + (m0 + g) * kS + 8 * i + 2 * t);
+    float2 hi = make_float2(0.0f, 0.0f);
+    if (rows_hi) hi = *reinterpret_cast<const float2*>(D + (m0 + g + 8) * kS + 8 * i + 2 * t);
+    c[i][0] = lo.x;
+    c[i][1] = lo.y;
+    c[i][2] = hi.x;
+    c[i][3] = hi.y;
   }
-  __syncthreads();
-  if (threadIdx.x < h) {
-    float s = 0.0f;
-    for (int t = 0; t < kTY; ++t) s += red[t * h + threadIdx.x];
+  frag_fma<true, false, kWNT>(c, Hs, Ds, m0, 0, kWNT, kRows / 8, rows_hi);
+#pragma unroll
+  for (int i = 0; i < kWNT; ++i) {
+    *reinterpret_cast<float2*>(D + (m0 + g) * kS + 8 * i + 2 * t) = make_float2(c[i][0], c[i][1]);
+    if (rows_hi) {
+      *reinterpret_cast<float2*>(D + (m0 + g + 8) * kS + 8 * i + 2 * t) =
+          make_float2(c[i][2], c[i][3]);
+    }
+  }
+}
+
+// v[i][e]: this thread's sum for column 8 (nt0 + i) + 2 t + e. Sums over the
+// warp's 8 row groups (a fixed butterfly), then red[mt][n] = the warp's sum.
+__device__ __forceinline__ void column_sums(float* red, float (&v)[kNT][2], int mt,
+                                            int nt0, int ntc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = v[i][e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (i < ntc && lane < 4) red[mt * kHP + 8 * (nt0 + i) + 2 * lane + e] = s;
+    }
+  }
+}
+
+// dst[n] = red[0][n] + ... + red[kMTiles - 1][n], in that order, n < h. The
+// caller has synchronized since red was written.
+__device__ __forceinline__ void sum_rows(const float* red, float* __restrict__ dst, int h) {
+  if (static_cast<int>(threadIdx.x) < h) {
+    float s = red[threadIdx.x];
+#pragma unroll
+    for (int m = 1; m < kMTiles; ++m) s += red[m * kHP + threadIdx.x];
     dst[threadIdx.x] = s;
   }
 }
@@ -127,46 +164,61 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
                        const float* __restrict__ b3, const float* __restrict__ fc4,
                        float* __restrict__ dphi, float* __restrict__ doff_parts,
                        float* __restrict__ w_parts, int HW, int J, int h) {
-  extern __shared__ float smem[];
-  const int hh = h * h;
-  const int ws = h + 1;                // odd row stride: the transposed reads
-                                       // of a warp fall on distinct banks
-  float* fc2s = smem;                  // (h, ws) as (in, out)
-  float* fc3s = fc2s + h * ws;
-  float* d2s = fc3s + h * ws;          // dfc2 accumulator
-  float* d3s = d2s + hh;               // dfc3 accumulator
-  float* X = d3s + hh;                 // (h, kRS) tiles, [column * kRS + row]
-  float* Y = X + h * kRS;
-  float* red = Y + h * kRS;            // (kTY, h) column sums
-  float* b2s = red + kTY * h;
-  float* b3s = b2s + h;
-  float* fc4s = b3s + h;
-  float* gs = fc4s + h;                // (kRows,) this row's cotangent
+  extern __shared__ float4 smem4[];
+  float* W2 = reinterpret_cast<float*>(smem4);  // fc2 (in, out), swizzled
+  float* W3 = W2 + kHP * kS;                    // fc3
+  float* D2 = W3 + kHP * kS;                    // dfc2 accumulator, plain rows
+  float* D3 = D2 + kHP * kS;                    // dfc3 accumulator
+  float* X = D3 + kHP * kS;                     // (kRows, kS) tiles, swizzled
+  float* Y = X + kRows * kS;
+  float* red = Y + kRows * kS;                  // (kMTiles, kHP) column sums
+  float* b2s = red + kMTiles * kHP;
+  float* b3s = b2s + kHP;
+  float* fc4s = b3s + kHP;
+  float* gs = fc4s + kHP;                       // (kRows,) this j's cotangent
 
   const int tid = threadIdx.x;
-  const int ty = tid / kTX;
-  const int tx = tid - ty * kTX;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;  // the fragment's row group
+  const int t = lane & 3;
   const int p0 = blockIdx.x * kRows;
+  const int ksteps = (h + 7) / 8;
+  // this warp's part of the (kRows, kHP) products
+  const int mt = warp % kMTiles;
+  const int m0 = 16 * mt;
+  const int nt0 = warp < kMTiles ? 0 : kNT;
+  const int ntc = warp < kMTiles ? kNT : kHP / 8 - kNT;
+  const int sg = gq & 4;     // the swizzle of rows m0 + gq and m0 + gq + 8
 
-  for (int i = tid; i < hh; i += kThreads) {
-    const int k = i / h;
-    const int d = k * ws + i - k * h;
-    fc2s[d] = fc2[i];
-    fc3s[d] = fc3[i];
+  for (int i = tid; i < kHP * kHP; i += kThreads) {
+    const int k = i / kHP;
+    const int n = i - k * kHP;
+    const bool in = k < h && n < h;
+    W2[sw(k, n)] = in ? fc2[k * h + n] : 0.0f;
+    W3[sw(k, n)] = in ? fc3[k * h + n] : 0.0f;
+    D2[i] = 0.0f;
+    D3[i] = 0.0f;
   }
-  load_vec(b2s, b2, h);
-  load_vec(b3s, b3, h);
-  load_vec(fc4s, fc4, h);
-  for (int i = tid; i < 2 * hh; i += kThreads) d2s[i] = 0.0f;  // d2s and d3s
+  for (int i = tid; i < kHP; i += kThreads) {
+    b2s[i] = i < h ? b2[i] : 0.0f;
+    b3s[i] = i < h ? b3[i] : 0.0f;
+    fc4s[i] = i < h ? fc4[i] : 0.0f;
+  }
 
-  float dphi_acc[kTM][kTN];
-  float dfc4_acc[kTN], db3_acc[kTN], db2_acc[kTN];
+  float dphi_acc[kNT][4];
+  float dfc4_acc[kNT][2], db3_acc[kNT][2], db2_acc[kNT][2];
 #pragma unroll
-  for (int jn = 0; jn < kTN; ++jn) {
-    dfc4_acc[jn] = db3_acc[jn] = db2_acc[jn] = 0.0f;
+  for (int i = 0; i < kNT; ++i) {
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) dphi_acc[i][jn] = 0.0f;
+    for (int e = 0; e < 2; ++e) dfc4_acc[i][e] = db3_acc[i][e] = db2_acc[i][e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dphi_acc[i][e] = 0.0f;
   }
+  // element (row m0 + gq + 8 (e >> 1), column 8 (nt0 + i) + 2 t + (e & 1)) of
+  // a fragment; the float2 at columns 2 t, 2 t + 1 of row r of a tile is at
+  const int row_a = (m0 + gq) * kS + 8 * nt0 + (2 * t ^ sg);
+  const int row_b = row_a + 8 * kS;
 
   for (int j = 0; j < J; ++j) {
     const float* offj = off + static_cast<size_t>(j) * h;
@@ -177,114 +229,151 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
     __syncthreads();
 
     // Y = h2 = relu(h1 fc2 + b2)
-    float acc[kTM][kTN];
-    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc2s, ws, 1, kRows, h, h, ty, tx, nullptr);
+    float acc[kNT][4] = {};
+    frag_mma<false, false, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
 #pragma unroll
-    for (int jn = 0; jn < kTN; ++jn) {
-      const int n = tx + kTX * jn;
-      if (n < h) {
-        const float bb = b2s[n];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          Y[n * kRS + ty + kTY * i] = fmaxf(acc[i][jn] + bb, 0.0f);
-        }
+    for (int i = 0; i < kNT; ++i) {
+      if (i < ntc) {
+        const float2 bb = *reinterpret_cast<const float2*>(b2s + 8 * (nt0 + i) + 2 * t);
+        *reinterpret_cast<float2*>(Y + row_a + 8 * i) =
+            make_float2(fmaxf(acc[i][0] + bb.x, 0.0f), fmaxf(acc[i][1] + bb.y, 0.0f));
+        *reinterpret_cast<float2*>(Y + row_b + 8 * i) =
+            make_float2(fmaxf(acc[i][2] + bb.x, 0.0f), fmaxf(acc[i][3] + bb.y, 0.0f));
       }
     }
     __syncthreads();
 
     // h3 = relu(h2 fc3 + b3); dfc4 += h3^T g; X = da3 = g fc4 [h3 > 0]
-    tile_gemm<kTM, kTN, false>(acc, Y, 1, kRS, fc3s, ws, 1, kRows, h, h, ty, tx, nullptr);
 #pragma unroll
-    for (int jn = 0; jn < kTN; ++jn) {
-      const int n = tx + kTX * jn;
-      if (n < h) {
-        const float bb = b3s[n];
-        const float w = fc4s[n];
+    for (int i = 0; i < kNT; ++i) {
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const int r = ty + kTY * i;
-          const float gr = gs[r];
-          const float h3 = fmaxf(acc[i][jn] + bb, 0.0f);
-          const float d = h3 > 0.0f ? gr * w : 0.0f;
-          dfc4_acc[jn] = fmaf(h3, gr, dfc4_acc[jn]);
-          db3_acc[jn] += d;
-          X[n * kRS + r] = d;
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    }
+    frag_mma<false, false, kNT>(acc, Y, W3, m0, nt0, ntc, ksteps, true);
+    {
+      const float ga = gs[m0 + gq];
+      const float gb = gs[m0 + gq + 8];
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        if (i < ntc) {
+          const int n = 8 * (nt0 + i) + 2 * t;
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float gr = e < 2 ? ga : gb;
+            const float h3 = fmaxf(acc[i][e] + b3s[n + (e & 1)], 0.0f);
+            d[e] = h3 > 0.0f ? gr * fc4s[n + (e & 1)] : 0.0f;
+            dfc4_acc[i][e & 1] = fmaf(h3, gr, dfc4_acc[i][e & 1]);
+            db3_acc[i][e & 1] += d[e];
+          }
+          *reinterpret_cast<float2*>(X + row_a + 8 * i) = make_float2(d[0], d[1]);
+          *reinterpret_cast<float2*>(X + row_b + 8 * i) = make_float2(d[2], d[3]);
         }
       }
     }
     __syncthreads();
 
     // dfc3 += h2^T da3; da2 = (da3 fc3^T) [h2 > 0]
-    weight_grad(d3s, Y, X, h, ty, tx);
-    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc3s, 1, ws, kRows, h, h, ty, tx, nullptr);
+    weight_grad(D3, Y, X, warp);
 #pragma unroll
-    for (int jn = 0; jn < kTN; ++jn) {
-      const int n = tx + kTX * jn;
-      if (n < h) {
+    for (int i = 0; i < kNT; ++i) {
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float d = Y[n * kRS + ty + kTY * i] > 0.0f ? acc[i][jn] : 0.0f;
-          acc[i][jn] = d;
-          db2_acc[jn] += d;
-        }
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    }
+    frag_fma<false, true, kNT>(acc, X, W3, m0, nt0, ntc, ksteps, true);
+#pragma unroll
+    for (int i = 0; i < kNT; ++i) {
+      if (i < ntc) {
+        const float2 ya = *reinterpret_cast<const float2*>(Y + row_a + 8 * i);
+        const float2 yb = *reinterpret_cast<const float2*>(Y + row_b + 8 * i);
+        acc[i][0] = ya.x > 0.0f ? acc[i][0] : 0.0f;
+        acc[i][1] = ya.y > 0.0f ? acc[i][1] : 0.0f;
+        acc[i][2] = yb.x > 0.0f ? acc[i][2] : 0.0f;
+        acc[i][3] = yb.y > 0.0f ? acc[i][3] : 0.0f;
+        db2_acc[i][0] += acc[i][0];
+        db2_acc[i][1] += acc[i][1];
+        db2_acc[i][0] += acc[i][2];
+        db2_acc[i][1] += acc[i][3];
       }
     }
     __syncthreads();  // every read of da3 and h2 is done
 
     // X = da2, Y = h1 again
 #pragma unroll
-    for (int jn = 0; jn < kTN; ++jn) {
-      const int n = tx + kTX * jn;
-      if (n < h) {
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) X[n * kRS + ty + kTY * i] = acc[i][jn];
+    for (int i = 0; i < kNT; ++i) {
+      if (i < ntc) {
+        *reinterpret_cast<float2*>(X + row_a + 8 * i) = make_float2(acc[i][0], acc[i][1]);
+        *reinterpret_cast<float2*>(X + row_b + 8 * i) = make_float2(acc[i][2], acc[i][3]);
       }
     }
     load_h1<kVec4>(Y, phi, offj, p0, HW, h);
     __syncthreads();
 
     // dfc2 += h1^T da2; da1 = (da2 fc2^T) [h1 > 0]; dphi += da1; doff[j] partial
-    weight_grad(d2s, Y, X, h, ty, tx);
-    tile_gemm<kTM, kTN, false>(acc, X, 1, kRS, fc2s, 1, ws, kRows, h, h, ty, tx, nullptr);
-    float col[kTN];
+    weight_grad(D2, Y, X, warp);
 #pragma unroll
-    for (int jn = 0; jn < kTN; ++jn) {
-      const int n = tx + kTX * jn;
-      col[jn] = 0.0f;
-      if (n < h) {
+    for (int i = 0; i < kNT; ++i) {
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float d = Y[n * kRS + ty + kTY * i] > 0.0f ? acc[i][jn] : 0.0f;
-          dphi_acc[i][jn] += d;
-          col[jn] += d;
-        }
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    }
+    frag_fma<false, true, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
+    float col[kNT][2];
+#pragma unroll
+    for (int i = 0; i < kNT; ++i) {
+      col[i][0] = col[i][1] = 0.0f;
+      if (i < ntc) {
+        const float2 ya = *reinterpret_cast<const float2*>(Y + row_a + 8 * i);
+        const float2 yb = *reinterpret_cast<const float2*>(Y + row_b + 8 * i);
+        const float d0 = ya.x > 0.0f ? acc[i][0] : 0.0f;
+        const float d1 = ya.y > 0.0f ? acc[i][1] : 0.0f;
+        const float d2 = yb.x > 0.0f ? acc[i][2] : 0.0f;
+        const float d3 = yb.y > 0.0f ? acc[i][3] : 0.0f;
+        dphi_acc[i][0] += d0;
+        dphi_acc[i][1] += d1;
+        dphi_acc[i][2] += d2;
+        dphi_acc[i][3] += d3;
+        col[i][0] = d0 + d2;
+        col[i][1] = d1 + d3;
       }
     }
-    // its first barrier also ends every read of X and Y before the next row
-    // overwrites them; red is next written two barriers after this read
-    reduce_columns(red, col,
-                   doff_parts + (static_cast<size_t>(blockIdx.x) * J + j) * h, h, ty, tx);
+    column_sums(red, col, mt, nt0, ntc);
+    // also ends every read of X and Y before the next j overwrites them; red
+    // is next written four barriers after this read
+    __syncthreads();
+    sum_rows(red, doff_parts + (static_cast<size_t>(blockIdx.x) * J + j) * h, h);
   }
 
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int p = p0 + ty + kTY * i;
-    if (p < HW) {
+  for (int i = 0; i < kNT; ++i) {
 #pragma unroll
-      for (int jn = 0; jn < kTN; ++jn) {
-        const int n = tx + kTX * jn;
-        if (n < h) dphi[static_cast<size_t>(p) * h + n] = dphi_acc[i][jn];
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + m0 + gq + 8 * (e >> 1);
+      const int n = 8 * (nt0 + i) + 2 * t + (e & 1);
+      if (i < ntc && p < HW && n < h) dphi[static_cast<size_t>(p) * h + n] = dphi_acc[i][e];
     }
   }
 
   // this block's partial: dfc2 | dfc3 | dfc4 | db2 | db3
+  const int hh = h * h;
   float* wp = w_parts + static_cast<size_t>(blockIdx.x) * (2 * hh + 3 * h);
   __syncthreads();
-  for (int i = tid; i < 2 * hh; i += kThreads) wp[i] = d2s[i];
-  reduce_columns(red, dfc4_acc, wp + 2 * hh, h, ty, tx);
-  reduce_columns(red, db2_acc, wp + 2 * hh + h, h, ty, tx);
-  reduce_columns(red, db3_acc, wp + 2 * hh + 2 * h, h, ty, tx);
+  for (int i = tid; i < hh; i += kThreads) {
+    const int m = i / h;
+    const int n = i - m * h;
+    wp[i] = D2[m * kS + n];
+    wp[hh + i] = D3[m * kS + n];
+  }
+  column_sums(red, dfc4_acc, mt, nt0, ntc);
+  __syncthreads();
+  sum_rows(red, wp + 2 * hh, h);
+  __syncthreads();
+  column_sums(red, db2_acc, mt, nt0, ntc);
+  __syncthreads();
+  sum_rows(red, wp + 2 * hh + h, h);
+  __syncthreads();
+  column_sums(red, db3_acc, mt, nt0, ntc);
+  __syncthreads();
+  sum_rows(red, wp + 2 * hh + 2 * h, h);
 }
 
 // out[i] = sum over blocks b, in order, of parts[b][i].
@@ -311,12 +400,10 @@ extern "C" int p2i_dk_mlp_tail_bwd(const float* phi, const float* off, const flo
                                    float* doff_parts, float* w_parts, float* doff,
                                    float* wgrad, int HW, int J, int h, int nblk,
                                    void* stream) {
-  if (h < 1 || h > kMaxHidden || HW < 1 || J < 1 ||
-      nblk != (HW + kRows - 1) / kRows) {
+  if (h < 1 || h > kHP || HW < 1 || J < 1 || nblk != (HW + kRows - 1) / kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * (static_cast<size_t>(2) * h * (h + 1) + 2 * h * h +
-                                       2 * h * kRS + kTY * h + 3 * h + kRows);
+  const size_t smem = sizeof(float) * kSmemFloats;
   const bool vec4 = h % 4 == 0 && reinterpret_cast<uintptr_t>(phi) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(off) % 16 == 0;
   auto kernel = vec4 ? dk_mlp_tail_bwd_kernel<true> : dk_mlp_tail_bwd_kernel<false>;

@@ -98,9 +98,12 @@ def fwd_shared_bytes(h: int) -> int:
 
 
 def bwd_shared_bytes(h: int) -> int:
-    """Dynamic shared memory of the backward kernel (csrc/dk_mlp_tail_bwd.cu)."""
-    rows, stride = BWD_PIXELS_PER_BLOCK, BWD_PIXELS_PER_BLOCK + 4
-    return 4 * (2 * h * (h + 1) + 2 * h * h + 2 * h * stride + 16 * h + 3 * h + rows)
+    """Dynamic shared memory of the backward kernel (csrc/dk_mlp_tail_bwd.cu):
+    every operand is padded to the hidden width MAX_HIDDEN, so it is the same
+    at every h. Two weights, two weight-gradient accumulators, two pixel
+    tiles, the column sums of 4 row tiles, three vectors and the cotangent."""
+    rows, hp = BWD_PIXELS_PER_BLOCK, MAX_HIDDEN
+    return 4 * (4 * hp * hp + 2 * rows * hp + 4 * hp + 3 * hp + rows)
 
 
 def _mlp_tail_cuda(phi_part, offsets, fc2, b2, fc3, b3, fc4, b4):

@@ -383,8 +383,11 @@ def _tail_inputs(HW, J, h, dev, seed=0, dtype=torch.float32):
 
 
 # ragged pixel tiles (HW not a multiple of 128 or 64), a hidden width below
-# the thread grid's 104 columns, and the models' own h = 100
-TAIL_SHAPES = [(256, 6, 100), (1000, 5, 100), (77, 3, 40), (130, 2, 102), (64, 1, 8)]
+# the thread grid's 104 columns, and the models' own h = 100; then the edges
+# of the backward's tiling: h not a multiple of 8 (nor of 4: no float4 loads),
+# h = 104 (no padding), one pixel past a 64-pixel block, and J = 1
+TAIL_SHAPES = [(256, 6, 100), (1000, 5, 100), (77, 3, 40), (130, 2, 102), (64, 1, 8),
+               (65, 4, 97), (200, 3, 104), (300, 1, 100)]
 
 
 @pytest.mark.parametrize("HW,J,h", TAIL_SHAPES)
@@ -426,7 +429,8 @@ def test_mlp_tail_bwd_kernel_matches_plain(dev, HW, J, h):
 
 
 def test_mlp_tail_bwd_repeats_bitwise(dev):
-    """Partials are summed in block order, so two runs agree bit for bit."""
+    """Within a block the tensor-core products run in a fixed order and the
+    partials are summed in block order, so two runs agree bit for bit."""
     from p2igan_tpu_torch.ops import dk_mlp_kernel as M
 
     phi, off, fc2, b2, fc3, b3, fc4, _ = _tail_inputs(700, 9, 100, dev)
@@ -437,16 +441,79 @@ def test_mlp_tail_bwd_repeats_bitwise(dev):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def test_mlp_tail_bwd_repeats_bitwise_at_full_width(dev):
+    """The same at the models' pixel count (256 blocks, every SM busy)."""
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    phi, off, fc2, b2, fc3, b3, fc4, _ = _tail_inputs(16384, 16, 100, dev, seed=3)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal((16, 16384))
+                         .astype(np.float32)).to(dev)
+    first = M.mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4)
+    second = M.mlp_tail_bwd(phi, off, g, fc2, b2, fc3, b3, fc4)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _near_zero_tail_inputs(dev, HW=256, J=4, h=100):
+    """Tail inputs whose pre-activations sit near zero. Pixels 0-63 share one
+    phi row, and b2 and b3 are set in float64 so that at j = 0 every second-
+    and third-layer pre-activation of those pixels is +-(1-2)e-5: near zero,
+    yet 10x beyond the rounding of a float32-accurate recompute (a single
+    TF32 pass, off by ~1e-3 here, flips many of them). At j = 1, pixel 100
+    has 50 first-layer pre-activations of exactly zero (off = -phi), where
+    every version masks by "zero at zero"."""
+    rng = np.random.default_rng(21)
+    s = np.sqrt(2.0 / h)
+    phi = rng.standard_normal((HW, h)).astype(np.float32)
+    phi[:64] = phi[0]
+    off = rng.standard_normal((J, h)).astype(np.float32)
+    off[1, :50] = -phi[100, :50]
+    fc2 = (rng.standard_normal((h, h)) * s).astype(np.float32)
+    fc3 = (rng.standard_normal((h, h)) * s).astype(np.float32)
+    fc4 = (rng.standard_normal(h) * s).astype(np.float32)
+
+    def near_zero():
+        return rng.choice([-1.0, 1.0], h) * rng.uniform(1e-5, 2e-5, h)
+
+    h1 = np.maximum(phi[0].astype(np.float64) + off[0], 0.0)
+    b2 = (near_zero() - h1 @ fc2.astype(np.float64)).astype(np.float32)
+    h2 = np.maximum(h1 @ fc2.astype(np.float64) + b2, 0.0)
+    b3 = (near_zero() - h2 @ fc3.astype(np.float64)).astype(np.float32)
+    g = rng.standard_normal((J, HW)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (phi, off, g, fc2, b2, fc3, b3, fc4)]
+
+
+def test_mlp_tail_bwd_near_zero_preactivations(dev):
+    """The relu masks come from the kernel's recomputed forward. With many
+    pre-activations near zero (and some exactly zero) the gradients still
+    agree with float64 autograd of the plain version, 1e-4 x max|plain|: the
+    recompute keeps float32 accuracy, so no mask flips against float64."""
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    args = _near_zero_tail_inputs(dev)
+    got = M.mlp_tail_bwd(*args)
+    want = M.mlp_tail_bwd_reference(*(a.double() for a in args))
+    torch.cuda.synchronize()
+    names = ("dphi", "doff", "dfc2", "db2", "dfc3", "db3", "dfc4")
+    for name, a, b in zip(names, got, want):
+        scale = float(b.abs().max())
+        assert scale > 0, name
+        assert float((a.double() - b).abs().max()) <= 1e-4 * scale, name
+
+
 def test_mlp_tail_rejects_what_the_kernel_does_not_take(dev):
     from p2igan_tpu_torch.ops import dk_mlp_kernel as M
 
     args = list(_tail_inputs(64, 2, 100, dev))
+    ones = torch.ones((2, 64), device=dev)
+    big = _tail_inputs(64, 2, 120, dev)                        # h > 104
     with pytest.raises(ValueError):
-        M.mlp_tail_fused(*_tail_inputs(64, 2, 120, dev))       # h > 104
-    wide = _tail_inputs(64, 2, 104, dev)                       # fits the forward only
+        M.mlp_tail_fused(*big)
+    with pytest.raises(ValueError):
+        M.mlp_tail_bwd(*big[:2], ones, *big[2:7])
+    wide = _tail_inputs(64, 2, 104, dev)                       # the widest both take
     assert M.mlp_tail_fused(*wide).shape == (2, 64)
-    with pytest.raises(ValueError):
-        M.mlp_tail_bwd(*wide[:2], torch.ones((2, 64), device=dev), *wide[2:7])
+    assert M.mlp_tail_bwd(*wide[:2], ones, *wide[2:7])[0].shape == (64, 104)
     with pytest.raises(ValueError):
         M.mlp_tail_fused(args[0], args[1][:, :50], *args[2:])  # shapes
     cpu = [a.cpu() for a in args]

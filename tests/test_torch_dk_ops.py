@@ -163,7 +163,8 @@ def test_select_visible_carries_the_gradient_to_the_frames():
 
 def test_tail_shared_memory_fits_the_card_at_hidden_100():
     """The launchers opt in to this much dynamic shared memory; both must fit
-    the 227 KB a block may use."""
+    the 227 KB a block may use, the backward at every hidden width it takes
+    (its operands are padded to 104)."""
     assert ttail.fwd_shared_bytes(100) <= ttail.MAX_SHARED_BYTES
     assert ttail.bwd_shared_bytes(100) <= ttail.MAX_SHARED_BYTES
-    assert ttail.bwd_shared_bytes(104) > ttail.MAX_SHARED_BYTES
+    assert ttail.bwd_shared_bytes(ttail.MAX_HIDDEN) <= ttail.MAX_SHARED_BYTES
