@@ -15,10 +15,11 @@
 //     its partial, and doff[j] is written as a per-block partial every j;
 //   - a second kernel sums the partials over the blocks in block order, so a
 //     training run repeats bit for bit.
-// Per j the block runs six tile products, the two recomputed ones on the
-// tensor cores in 3xTF32 (dk_mlp_mma.cuh: float32 accuracy, fixed order), the
-// other four still on the CUDA cores (frag_fma), every operand stored once
-// in a swizzled (rows, 104) tile and read plain or transposed:
+// Per j the block runs six tile products, the two recomputed and the two
+// transposed ones on the tensor cores in 3xTF32 (dk_mlp_mma.cuh: float32
+// accuracy, fixed order), the two weight gradients still on the CUDA cores
+// (frag_fma), every operand stored once in a swizzled (rows, 104) tile and
+// read plain or transposed:
 //   X = h1                      ; Y = h2 = relu(X fc2 + b2)
 //   a3 = Y fc3 + b3, h3 = relu  ; dfc4 += h3^T g ; X = da3 = g fc4 [h3 > 0]
 //   dfc3 += Y^T X               ; dh2 = X fc3^T  ; da2 = dh2 [h2 > 0]
@@ -280,7 +281,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
     }
-    frag_fma<false, true, kNT>(acc, X, W3, m0, nt0, ntc, ksteps, true);
+    frag_mma<false, true, kNT>(acc, X, W3, m0, nt0, ntc, ksteps, true);
 #pragma unroll
     for (int i = 0; i < kNT; ++i) {
       if (i < ntc) {
@@ -316,7 +317,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
     }
-    frag_fma<false, true, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
+    frag_mma<false, true, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
     float col[kNT][2];
 #pragma unroll
     for (int i = 0; i < kNT; ++i) {
