@@ -15,11 +15,9 @@
 //     its partial, and doff[j] is written as a per-block partial every j;
 //   - a second kernel sums the partials over the blocks in block order, so a
 //     training run repeats bit for bit.
-// Per j the block runs six tile products, the two recomputed and the two
-// transposed ones on the tensor cores in 3xTF32 (dk_mlp_mma.cuh: float32
-// accuracy, fixed order), the two weight gradients still on the CUDA cores
-// (frag_fma), every operand stored once in a swizzled (rows, 104) tile and
-// read plain or transposed:
+// Per j the block runs six tile products, each on the tensor cores in 3xTF32
+// (dk_mlp_mma.cuh: float32 accuracy, fixed order), every operand stored once
+// in a swizzled (rows, 104) tile and read plain or transposed:
 //   X = h1                      ; Y = h2 = relu(X fc2 + b2)
 //   a3 = Y fc3 + b3, h3 = relu  ; dfc4 += h3^T g ; X = da3 = g fc4 [h3 > 0]
 //   dfc3 += Y^T X               ; dh2 = X fc3^T  ; da2 = dh2 [h2 > 0]
@@ -117,7 +115,7 @@ __device__ __forceinline__ void weight_grad(float* D, const float* Hs, const flo
     c[i][2] = hi.x;
     c[i][3] = hi.y;
   }
-  frag_fma<true, false, kWNT>(c, Hs, Ds, m0, 0, kWNT, kRows / 8, rows_hi);
+  frag_mma<true, false, kWNT>(c, Hs, Ds, m0, 0, kWNT, kRows / 8, rows_hi);
 #pragma unroll
   for (int i = 0; i < kWNT; ++i) {
     *reinterpret_cast<float2*>(D + (m0 + g) * kS + 8 * i + 2 * t) = make_float2(c[i][0], c[i][1]);
