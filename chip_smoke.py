@@ -72,7 +72,8 @@
      within 1e-4 x max|plain|, the weight and bias gradients (sums of
      J*HW = 3.1e6 terms in another order) within 1e-3 x max|plain|; the
      forward's plain version is the chain of three ``torch.matmul`` products,
-     so its time is also printed as ``cublas_chain_ms``;
+     so its time is also printed as ``cublas_chain_ms``; the backward's rate
+     against the float32 bound and the 3xTF32 ideal;
    - times the host input pipeline alone on the training store (windows/s);
    - serves the two fake events through ``scripts/infer_torch.py`` with
      ``dk_gauge.json`` and ``stdk_gauge.json``, checks the stores, the launch
@@ -81,7 +82,8 @@
      steps cut from 200000 iterations, rec-loss only): launch counts of both
      kernels equal to the steps (plus the validation forwards), every
      parameter's last gradient finite and non-zero, and a 6-step resume whose
-     last 4 steps run under ``torch.profiler`` (idle share, time by kernel).
+     last 4 steps run under ``torch.profiler`` (idle share, time by kernel,
+     #13's share of the kernel time).
 8. The simple family at full width (base 64, T=16, 128x128, seeded weights,
    BatchNorm statistics away from identity; the shipped p2igan configs with
    ``model`` set to ``{"name": "simple", "in_channels": 1, "base_channels":
@@ -247,6 +249,10 @@ LIB_CHUNK = 16384
 # H100 SXM data sheet: device memory rate and the float32 rate outside the
 # tensor cores (the precision policy keeps TF32 off)
 PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
+# and the dense TF32 tensor-core rate: #13 makes three TF32 passes (3xTF32)
+# to keep float32 accuracy, so its ideal beside the float32 bound is 3 x its
+# operations at this rate
+PEAK_TF32_FLOPS = 495e12
 ROTATE_BYTES = 128 << 20  # traffic between two uses of one input in graph_ms: > 2x L2
 POOL_SHAPES = [(WINDOW_BATCH, BASE, H, W), (WINDOW_BATCH, 2 * BASE, H // 2, W // 2),
                (WINDOW_BATCH, 4 * BASE, H // 4, W // 4)]
@@ -290,6 +296,8 @@ KERNELS = {
 # the device kernels of one #9 launch: the cell build, then the search
 CELL_SEARCH_KERNELS = ("cell_init_kernel", "cell_count_kernel", "cell_scan_kernel",
                        "cell_scatter_kernel", "cell_decode_kernel", "knn_cells_kernel")
+# the device kernels of one #13 launch: the block partials, then their sums
+TAIL_BWD_KERNELS = ("dk_mlp_tail_bwd_kernel", "sum_block_partials_kernel")
 SERVING_KERNELS = ("gauge_topk", "combine_table_multi", "maxpool2_duplicate")
 STI_SERVING_KERNELS = ("gauge_topk", "combine_table", "maxpool2_duplicate")
 # the path whose launch count each kernel reports in the kernels line
@@ -1953,12 +1961,16 @@ def check_mlp_tail_bwd(dev) -> dict:
     flops = J * hw * (12 * h * h + 10 * h)
     nbytes = 4 * (2 * hw * h + 2 * J * h + J * hw + 4 * h * h + 6 * h)
     b = bound(nbytes, flops)
+    tf32x3_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
     print(f"mlp_tail_bwd J={J} HW={hw} h={h}: kernel vs plain / kernel vs float64 / "
           f"plain vs float64, x max|plain|: "
           + ", ".join(f"{n} {v[0]:.1e}/{v[1]:.1e}/{v[2]:.1e}" for n, v in worst.items())
           + f"; repeats bitwise; kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
           f"TFLOP/s), plain {p_ms:.4f} ms (cublas_chain_ms), bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})")
+          f"({b['bound_by']}: {b['bound_ms'] / k_ms:.3f} of the float32 peak "
+          f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s); the 3xTF32 ideal, three passes at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {tf32x3_ms:.4f} ms "
+          f"({tf32x3_ms / k_ms:.3f} of it)")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **b, "library_ms": p_ms}
 
 
@@ -2100,8 +2112,18 @@ def train_rec(tmp: Path, card: str, dev, model: str) -> tuple:
     cfg = write_train_tree(tmp, DK_FAMILY[model][1])
     if cfg["loss"]["use_gan"] or cfg["model"]["name"] != model:
         fail(f"{DK_FAMILY[model][1].name} is no longer a rec-loss {model} config")
-    return train_family(tmp, card, dev, model, cfg, lambda steps, val: {
+    launches, sps = train_family(tmp, card, dev, model, cfg, lambda steps, val: {
         "mlp_tail_fused": steps + val, "mlp_tail_bwd": steps})
+    summary = json.loads((tmp / f"profile_{model}" / "summary.json").read_text())
+    total = sum(summary["kernel_ms"].values())
+    tail_bwd = sum(ms for key, ms in summary["kernel_ms"].items()
+                   if any(name in key for name in TAIL_BWD_KERNELS))
+    if not (total > 0 and tail_bwd > 0):
+        fail(f"the {model} profile shows no device time for #13 (mlp_tail_bwd)")
+    print(f"{model} training: of {total:.2f} ms of kernel time in the {summary['steps']} "
+          f"profiled steps (device busy {summary['device_busy_ms']:.2f} ms), #13 "
+          f"(mlp_tail_bwd) takes {tail_bwd:.3f} ms = {tail_bwd / total:.4f}")
+    return launches, sps
 
 
 # -- the simple family --------------------------------------------------------

@@ -1,5 +1,6 @@
-// Warp-level tile products on the tensor cores at float32 accuracy (3xTF32),
-// for the DK/STDK MLP tail backward (dk_mlp_tail_bwd.cu).
+// Warp-level tile products for the DK/STDK MLP tail backward
+// (dk_mlp_tail_bwd.cu): on the tensor cores at float32 accuracy (3xTF32,
+// frag_mma), or on the CUDA cores in the forward kernel's order (frag_fma).
 //
 // Every operand lives in shared memory as a row-major tile of kS = 104 floats
 // a row (the hidden width padded to a multiple of 8 with zeros), swizzled:
@@ -107,6 +108,37 @@ __device__ __forceinline__ void frag_mma(float (&acc)[NT][4], const float* A,
         mma_tf32(acc[i], al, bh);
         mma_tf32(acc[i], ah, bl);
         mma_tf32(acc[i], ah, bh);
+      }
+    }
+  }
+}
+
+// The same products on the CUDA cores, with the same fragment ownership, in
+// the forward kernel's arithmetic: each output is a float32 sum over k in
+// ascending order, fmaf from zero, as dk_mlp_tile.cuh's tile_gemm forms it
+// (padded k add fmaf(0, 0, acc) = acc). So a forward recomputed here is bit
+// for bit the one dk_mlp_tail.cu computed.
+template <bool kAT, bool kBT, int NT>
+__device__ __forceinline__ void frag_fma(float (&acc)[NT][4], const float* A,
+                                         const float* B, int m0, int nt0, int ntc,
+                                         int ksteps, bool rows_hi) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll 2
+  for (int k = 0; k < 8 * ksteps; ++k) {
+    const float a0 = kAT ? A[sw(k, m0 + g)] : A[sw(m0 + g, k)];
+    const float a1 = rows_hi ? (kAT ? A[sw(k, m0 + g + 8)] : A[sw(m0 + g + 8, k)]) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (i < ntc) {
+        const int n = 8 * (nt0 + i) + 2 * t;
+        const float b0 = kBT ? B[sw(n, k)] : B[sw(k, n)];
+        const float b1 = kBT ? B[sw(n + 1, k)] : B[sw(k, n + 1)];
+        acc[i][0] = fmaf(a0, b0, acc[i][0]);
+        acc[i][1] = fmaf(a0, b1, acc[i][1]);
+        acc[i][2] = fmaf(a1, b0, acc[i][2]);
+        acc[i][3] = fmaf(a1, b1, acc[i][3]);
       }
     }
   }

@@ -15,9 +15,16 @@
 //     its partial, and doff[j] is written as a per-block partial every j;
 //   - a second kernel sums the partials over the blocks in block order, so a
 //     training run repeats bit for bit.
-// Per j the block runs six tile products, each on the tensor cores in 3xTF32
-// (dk_mlp_mma.cuh: float32 accuracy, fixed order), every operand stored once
-// in a swizzled (rows, 104) tile and read plain or transposed:
+// Per j the block runs six tile products (dk_mlp_mma.cuh), every operand
+// stored once in a swizzled (rows, 104) tile and read plain or transposed.
+// The two transposed and the two weight-gradient products run on the tensor
+// cores in 3xTF32 (float32 accuracy, fixed order). The two recomputed ones
+// stay on the CUDA cores in the forward kernel's own arithmetic (dk_mlp_tail.cu,
+// sequential fmaf), so the relu masks are bit for bit the forward's: on the
+// tensor cores the few of the 3e8 pre-activations a layer that lie within
+// float32 rounding of zero may change sign, and a flipped mask moves a pixel's
+// dphi by a whole unit's share (1.5e-2 x max|plain| at the training shape,
+// against a tolerance of 1e-4).
 //   X = h1                      ; Y = h2 = relu(X fc2 + b2)
 //   a3 = Y fc3 + b3, h3 = relu  ; dfc4 += h3^T g ; X = da3 = g fc4 [h3 > 0]
 //   dfc3 += Y^T X               ; dh2 = X fc3^T  ; da2 = dh2 [h2 > 0]
@@ -229,7 +236,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 
     // Y = h2 = relu(h1 fc2 + b2)
     float acc[kNT][4] = {};
-    frag_mma<false, false, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
+    frag_fma<false, false, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
 #pragma unroll
     for (int i = 0; i < kNT; ++i) {
       if (i < ntc) {
@@ -248,7 +255,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
     }
-    frag_mma<false, false, kNT>(acc, Y, W3, m0, nt0, ntc, ksteps, true);
+    frag_fma<false, false, kNT>(acc, Y, W3, m0, nt0, ntc, ksteps, true);
     {
       const float ga = gs[m0 + gq];
       const float gb = gs[m0 + gq + 8];

@@ -12,7 +12,8 @@ directory, and this one) are compared on one card in one process.
 
 For every tree: the seven gradients against the plain version on the card
 (``chip_smoke.py``'s tolerances: 1e-4 x max|plain| for dphi and doff, 1e-3 for
-the weight and bias gradients), a bitwise repeat, the median CUDA-event time of
+the weight and bias gradients; a tree outside them is still timed, marked
+``"ok": false``, and the script exits 1), a bitwise repeat, the median CUDA-event time of
 one call over ``--reps`` calls and the device time of one call in a CUDA-graph
 replay. The trees are timed in rounds that visit them forward and then
 backward (A B B A), and each tree's medians are taken over all its rounds.
@@ -47,8 +48,6 @@ from p2igan_tpu_torch.ops.dk_mlp_kernel import mlp_tail_bwd_reference
 REPO = Path(_repo)
 SOURCE = Path("p2igan_tpu_torch") / "csrc" / "dk_mlp_tail_bwd.cu"
 BUILD = REPO / "build" / "time_dk_tail_bwd"
-# H100 SXM data sheet: the dense TF32 tensor-core rate (3xTF32 makes three passes)
-TF32_FLOPS = 495e12
 NAMES = ("dphi", "doff", "dfc2", "db2", "dfc3", "db3", "dfc4")
 
 
@@ -153,10 +152,9 @@ def main() -> int:
             failed.append(f"{label}: two calls differ")
         print(f"{label}: max err x max|plain| "
               + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
-        if len(failed) == before:
-            result["trees"][label] = {"pixels_a_block": built[label][1],
-                                      "err_x_max_plain": errs, "ms": [], "graph_ms": []}
-    order = list(result["trees"])  # a tree that failed a check is not timed
+        result["trees"][label] = {"pixels_a_block": built[label][1], "ok": len(failed) == before,
+                                  "err_x_max_plain": errs, "ms": [], "graph_ms": []}
+    order = list(result["trees"])
     for _ in range(args.rounds):
         for label in order + order[::-1]:
             rec = result["trees"][label]
@@ -170,7 +168,7 @@ def main() -> int:
         print(f"{label}: {rec['median_ms']:.4f} ms a call (rounds {rec['ms']}), graph "
               f"{rec['median_graph_ms']:.4f} ms, {rec['tflops']:.1f} TFLOP/s")
     result["float32_bound_ms"] = flops / chip_smoke.PEAK_FLOPS * 1e3
-    result["tf32x3_ideal_ms"] = 3 * flops / TF32_FLOPS * 1e3
+    result["tf32x3_ideal_ms"] = 3 * flops / chip_smoke.PEAK_TF32_FLOPS * 1e3
     result["failed"] = failed
     print(card)
     line = json.dumps(result)

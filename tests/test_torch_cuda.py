@@ -454,43 +454,17 @@ def test_mlp_tail_bwd_repeats_bitwise_at_full_width(dev):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def _near_zero_tail_inputs(dev, HW=256, J=4, h=100):
-    """Tail inputs whose pre-activations sit near zero. Pixels 0-63 share one
-    phi row, and b2 and b3 are set in float64 so that at j = 0 every second-
-    and third-layer pre-activation of those pixels is +-(1-2)e-5: near zero,
-    yet 10x beyond the rounding of a float32-accurate recompute (a single
-    TF32 pass, off by ~1e-3 here, flips many of them). At j = 1, pixel 100
-    has 50 first-layer pre-activations of exactly zero (off = -phi), where
-    every version masks by "zero at zero"."""
-    rng = np.random.default_rng(21)
-    s = np.sqrt(2.0 / h)
-    phi = rng.standard_normal((HW, h)).astype(np.float32)
-    phi[:64] = phi[0]
-    off = rng.standard_normal((J, h)).astype(np.float32)
-    off[1, :50] = -phi[100, :50]
-    fc2 = (rng.standard_normal((h, h)) * s).astype(np.float32)
-    fc3 = (rng.standard_normal((h, h)) * s).astype(np.float32)
-    fc4 = (rng.standard_normal(h) * s).astype(np.float32)
-
-    def near_zero():
-        return rng.choice([-1.0, 1.0], h) * rng.uniform(1e-5, 2e-5, h)
-
-    h1 = np.maximum(phi[0].astype(np.float64) + off[0], 0.0)
-    b2 = (near_zero() - h1 @ fc2.astype(np.float64)).astype(np.float32)
-    h2 = np.maximum(h1 @ fc2.astype(np.float64) + b2, 0.0)
-    b3 = (near_zero() - h2 @ fc3.astype(np.float64)).astype(np.float32)
-    g = rng.standard_normal((J, HW)).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (phi, off, g, fc2, b2, fc3, b3, fc4)]
-
-
 def test_mlp_tail_bwd_near_zero_preactivations(dev):
     """The relu masks come from the kernel's recomputed forward. With many
-    pre-activations near zero (and some exactly zero) the gradients still
-    agree with float64 autograd of the plain version, 1e-4 x max|plain|: the
+    pre-activations near zero and some exactly zero
+    (``test_torch_tf32x3.near_zero_tail_inputs``) the gradients still agree
+    with float64 autograd of the plain version, 1e-4 x max|plain|: the
     recompute keeps float32 accuracy, so no mask flips against float64."""
+    from test_torch_tf32x3 import near_zero_tail_inputs
+
     from p2igan_tpu_torch.ops import dk_mlp_kernel as M
 
-    args = _near_zero_tail_inputs(dev)
+    args = [torch.from_numpy(a).to(dev) for a in near_zero_tail_inputs()]
     got = M.mlp_tail_bwd(*args)
     want = M.mlp_tail_bwd_reference(*(a.double() for a in args))
     torch.cuda.synchronize()
