@@ -113,32 +113,43 @@ __device__ __forceinline__ void frag_mma(float (&acc)[NT][4], const float* A,
   }
 }
 
-// The same products on the CUDA cores, with the same fragment ownership, in
-// the forward kernel's arithmetic: each output is a float32 sum over k in
-// ascending order, fmaf from zero, as dk_mlp_tile.cuh's tile_gemm forms it
-// (padded k add fmaf(0, 0, acc) = acc). So a forward recomputed here is bit
-// for bit the one dk_mlp_tail.cu computed.
-template <bool kAT, bool kBT, int NT>
+// acc[i] += A(m0 .. m0 + 15, 0 .. 8 ksteps) B(same k, n-tile nt0 + i) on the
+// CUDA cores, A and B read plain, with frag_mma's fragment ownership, in the
+// forward kernel's arithmetic: each output a float32 sum over k in ascending
+// order, fmaf from zero, as dk_mlp_tile.cuh's tile_gemm forms it (a padded k
+// adds fmaf(0, 0, acc) = acc). So a forward recomputed here is bit for bit
+// the one dk_mlp_tail.cu computed. Four k a step: a float4 of each of the
+// thread's two A rows and a float2 of B a k and n-tile, 30 conflict-free
+// shared loads for 112 fmaf.
+template <int NT>
 __device__ __forceinline__ void frag_fma(float (&acc)[NT][4], const float* A,
                                          const float* B, int m0, int nt0, int ntc,
-                                         int ksteps, bool rows_hi) {
+                                         int ksteps) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll 2
-  for (int k = 0; k < 8 * ksteps; ++k) {
-    const float a0 = kAT ? A[sw(k, m0 + g)] : A[sw(m0 + g, k)];
-    const float a1 = rows_hi ? (kAT ? A[sw(k, m0 + g + 8)] : A[sw(m0 + g + 8, k)]) : 0.0f;
+  const int sg = g & 4;
+  const float* a0 = A + (m0 + g) * kS;
+  const float* a1 = a0 + 8 * kS;  // row m0 + g + 8: the same swizzle
+  const int n0 = 8 * nt0 + 2 * (lane & 3);
+#pragma unroll 1
+  for (int k = 0; k < 8 * ksteps; k += 4) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + (k ^ sg));
+    const float4 x1 = *reinterpret_cast<const float4*>(a1 + (k ^ sg));
+    const float r0[4] = {x0.x, x0.y, x0.z, x0.w};
+    const float r1[4] = {x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      if (i < ntc) {
-        const int n = 8 * (nt0 + i) + 2 * t;
-        const float b0 = kBT ? B[sw(n, k)] : B[sw(k, n)];
-        const float b1 = kBT ? B[sw(n + 1, k)] : B[sw(k, n + 1)];
-        acc[i][0] = fmaf(a0, b0, acc[i][0]);
-        acc[i][1] = fmaf(a0, b1, acc[i][1]);
-        acc[i][2] = fmaf(a1, b0, acc[i][2]);
-        acc[i][3] = fmaf(a1, b1, acc[i][3]);
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* brow = B + (k + kk) * kS;
+      const int bsw = (k + kk) & 4;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (i < ntc) {
+          const float2 b = *reinterpret_cast<const float2*>(brow + ((n0 + 8 * i) ^ bsw));
+          acc[i][0] = fmaf(r0[kk], b.x, acc[i][0]);
+          acc[i][1] = fmaf(r0[kk], b.y, acc[i][1]);
+          acc[i][2] = fmaf(r1[kk], b.x, acc[i][2]);
+          acc[i][3] = fmaf(r1[kk], b.y, acc[i][3]);
+        }
       }
     }
   }

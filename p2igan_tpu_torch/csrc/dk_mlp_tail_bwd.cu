@@ -111,24 +111,20 @@ __device__ __forceinline__ void weight_grad(float* D, const float* Hs, const flo
   const int t = lane & 3;
   const int m0 = 16 * warp;
   const bool rows_hi = m0 + 8 < kHP;
-  float c[kWNT][4];
-#pragma unroll
-  for (int i = 0; i < kWNT; ++i) {
-    const float2 lo = *reinterpret_cast<const float2*>(D + (m0 + g) * kS + 8 * i + 2 * t);
-    float2 hi = make_float2(0.0f, 0.0f);
-    if (rows_hi) hi = *reinterpret_cast<const float2*>(D + (m0 + g + 8) * kS + 8 * i + 2 * t);
-    c[i][0] = lo.x;
-    c[i][1] = lo.y;
-    c[i][2] = hi.x;
-    c[i][3] = hi.y;
-  }
+  // this j's product from zero, then one rounded add into the accumulator:
+  // adding straight into it through the tensor cores drifts (their float32
+  // sums do not round to nearest), 1.4e-4 x max|dfc2| over J = 192
+  float c[kWNT][4] = {};
   frag_mma<true, false, kWNT>(c, Hs, Ds, m0, 0, kWNT, kRows / 8, rows_hi);
 #pragma unroll
   for (int i = 0; i < kWNT; ++i) {
-    *reinterpret_cast<float2*>(D + (m0 + g) * kS + 8 * i + 2 * t) = make_float2(c[i][0], c[i][1]);
-    if (rows_hi) {
-      *reinterpret_cast<float2*>(D + (m0 + g + 8) * kS + 8 * i + 2 * t) =
-          make_float2(c[i][2], c[i][3]);
+#pragma unroll
+    for (int dr = 0; dr < 2; ++dr) {
+      if (dr == 0 || rows_hi) {
+        float2* d = reinterpret_cast<float2*>(D + (m0 + g + 8 * dr) * kS + 8 * i + 2 * t);
+        const float2 v = *d;
+        *d = make_float2(v.x + c[i][2 * dr], v.y + c[i][2 * dr + 1]);
+      }
     }
   }
 }
@@ -236,7 +232,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 
     // Y = h2 = relu(h1 fc2 + b2)
     float acc[kNT][4] = {};
-    frag_fma<false, false, kNT>(acc, X, W2, m0, nt0, ntc, ksteps, true);
+    frag_fma<kNT>(acc, X, W2, m0, nt0, ntc, ksteps);
 #pragma unroll
     for (int i = 0; i < kNT; ++i) {
       if (i < ntc) {
@@ -255,7 +251,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
     }
-    frag_fma<false, false, kNT>(acc, Y, W3, m0, nt0, ntc, ksteps, true);
+    frag_fma<kNT>(acc, Y, W3, m0, nt0, ntc, ksteps);
     {
       const float ga = gs[m0 + gq];
       const float gb = gs[m0 + gq + 8];
