@@ -67,39 +67,68 @@ constexpr int kMTiles = kRows / 16;        // 4 row tiles of the (64, 104) produ
 constexpr int kNT = 7;                     // n-tiles a warp of those owns (or 6)
 constexpr int kWNT = kHP / 8;              // 13 n-tiles of a weight-gradient row tile
 constexpr int kWMTiles = (kHP + 15) / 16;  // 7 row tiles of the weight gradients
-constexpr int kSmemFloats = 4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 3 * kHP + kRows;
+constexpr int kSmemFloats = 4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 4 * kHP + kRows;
 static_assert(kThreads / 32 == 2 * kMTiles, "two warps a row tile");
 static_assert(kWMTiles <= kWarps, "a weight-gradient row tile a warp");
 
-// dst (kRows, kS) swizzled = relu(phi[p0 + r, k] + offj[k]); columns past h
-// and rows past HW are zero. A warp a row.
+// This thread's share of the block's (kRows, kHP) phi tile, held in
+// registers for the whole j loop: item q is the float4 (or float) number
+// tid + kThreads q of the tile, row-major. Rows past HW hold -inf, so that
+// relu(phi + off) is 0 there; columns past h hold 0 (as off does).
 template <bool kVec4>
-__device__ __forceinline__ void load_h1(float* dst, const float* __restrict__ phi,
-                                        const float* __restrict__ offj, int p0,
-                                        int HW, int h) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int p = p0 + r;
-    const float* row = phi + static_cast<size_t>(p) * h;
-    if (kVec4) {
-      for (int c = 4 * lane; c < kHP; c += 128) {
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (p < HW && c < h) {
-          const float4 x = *reinterpret_cast<const float4*>(row + c);
-          const float4 o = *reinterpret_cast<const float4*>(offj + c);
-          v = make_float4(fmaxf(x.x + o.x, 0.0f), fmaxf(x.y + o.y, 0.0f),
-                          fmaxf(x.z + o.z, 0.0f), fmaxf(x.w + o.w, 0.0f));
+struct PhiRegs {
+  static constexpr int kW = kVec4 ? 4 : 1;  // floats an item
+  static constexpr int kPerRow = kHP / kW;
+  static constexpr int kTotal = kRows * kPerRow;
+  static constexpr int kItems = (kTotal + kThreads - 1) / kThreads;
+  float v[kItems][kW];
+
+  __device__ __forceinline__ void load(const float* __restrict__ phi, int p0, int HW, int h) {
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int e = threadIdx.x + kThreads * q;
+      const int r = e / kPerRow;
+      const int c = (e - r * kPerRow) * kW;
+      const int p = p0 + r;
+      const float* src = phi + static_cast<size_t>(p) * h + c;
+      if (e < kTotal && p < HW && c < h) {
+        if constexpr (kVec4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          v[q][0] = x.x;
+          v[q][1] = x.y;
+          v[q][2] = x.z;
+          v[q][3] = x.w;
+        } else {
+          v[q][0] = src[0];
         }
-        *reinterpret_cast<float4*>(dst + sw(r, c)) = v;
-      }
-    } else {
-      for (int c = lane; c < kHP; c += 32) {
-        dst[sw(r, c)] = p < HW && c < h ? fmaxf(row[c] + offj[c], 0.0f) : 0.0f;
+      } else {
+        const float fill = e < kTotal && p >= HW ? __int_as_float(0xff800000) : 0.0f;
+#pragma unroll
+        for (int w = 0; w < kW; ++w) v[q][w] = fill;
       }
     }
   }
-}
+
+  // dst (kRows, kS) swizzled = relu(phi + offs), offs (kHP,) zero past h
+  __device__ __forceinline__ void build_h1(float* dst, const float* offs) const {
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int e = threadIdx.x + kThreads * q;
+      if (e < kTotal) {
+        const int r = e / kPerRow;
+        const int c = (e - r * kPerRow) * kW;
+        if constexpr (kVec4) {
+          const float4 o = *reinterpret_cast<const float4*>(offs + c);
+          *reinterpret_cast<float4*>(dst + sw(r, c)) =
+              make_float4(fmaxf(v[q][0] + o.x, 0.0f), fmaxf(v[q][1] + o.y, 0.0f),
+                          fmaxf(v[q][2] + o.z, 0.0f), fmaxf(v[q][3] + o.w, 0.0f));
+        } else {
+          dst[sw(r, c)] = fmaxf(v[q][0] + offs[c], 0.0f);
+        }
+      }
+    }
+  }
+};
 
 // D (kHP, kS) += Hs^T Ds over the block's kRows rows: warp w < kWMTiles owns
 // accumulator rows 16 w .. 16 w + 15 (those below kHP) and all kWNT n-tiles.
@@ -177,7 +206,8 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
   float* b2s = red + kMTiles * kHP;
   float* b3s = b2s + kHP;
   float* fc4s = b3s + kHP;
-  float* gs = fc4s + kHP;                       // (kRows,) this j's cotangent
+  float* offs = fc4s + kHP;                     // (kHP,) this j's off, zero past h
+  float* gs = offs + kHP;                       // (kRows,) this j's cotangent
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -206,7 +236,12 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
     b2s[i] = i < h ? b2[i] : 0.0f;
     b3s[i] = i < h ? b3[i] : 0.0f;
     fc4s[i] = i < h ? fc4[i] : 0.0f;
+    offs[i] = i < h ? off[i] : 0.0f;
   }
+  if (tid < kRows) gs[tid] = p0 + tid < HW ? g[p0 + tid] : 0.0f;
+  PhiRegs<kVec4> ph;
+  ph.load(phi, p0, HW, h);
+  __syncthreads();
 
   float dphi_acc[kNT][4];
   float dfc4_acc[kNT][2], db3_acc[kNT][2], db2_acc[kNT][2];
@@ -222,12 +257,21 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
   const int row_a = (m0 + gq) * kS + 8 * nt0 + (2 * t ^ sg);
   const int row_b = row_a + 8 * kS;
 
+  // the threads that fetch the next j's off (tid < kHP) and g (the next kRows)
+  const int g_lane = tid - 128;
+  static_assert(kHP <= 128 && 128 + kRows <= kThreads, "fetch lanes");
+
   for (int j = 0; j < J; ++j) {
-    const float* offj = off + static_cast<size_t>(j) * h;
-    load_h1<kVec4>(X, phi, offj, p0, HW, h);
-    if (tid < kRows) {
-      gs[tid] = p0 + tid < HW ? g[static_cast<size_t>(j) * HW + p0 + tid] : 0.0f;
+    // fetched now, stored after the last read of offs and gs for this j
+    float next = 0.0f;
+    if (j + 1 < J) {
+      if (tid < h) {
+        next = off[static_cast<size_t>(j + 1) * h + tid];
+      } else if (g_lane >= 0 && g_lane < kRows && p0 + g_lane < HW) {
+        next = g[static_cast<size_t>(j + 1) * HW + p0 + g_lane];
+      }
     }
+    ph.build_h1(X, offs);
     __syncthreads();
 
     // Y = h2 = relu(h1 fc2 + b2)
@@ -308,7 +352,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
         *reinterpret_cast<float2*>(X + row_b + 8 * i) = make_float2(acc[i][2], acc[i][3]);
       }
     }
-    load_h1<kVec4>(Y, phi, offj, p0, HW, h);
+    ph.build_h1(Y, offs);
     __syncthreads();
 
     // dfc2 += h1^T da2; da1 = (da2 fc2^T) [h1 > 0]; dphi += da1; doff[j] partial
@@ -339,6 +383,13 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
       }
     }
     column_sums(red, col, mt, nt0, ntc);
+    if (j + 1 < J) {  // offs was last read before the barrier above, gs before that
+      if (tid < kHP) {
+        offs[tid] = next;
+      } else if (g_lane >= 0 && g_lane < kRows) {
+        gs[g_lane] = next;
+      }
+    }
     // also ends every read of X and Y before the next j overwrites them; red
     // is next written four barriers after this read
     __syncthreads();

@@ -101,9 +101,10 @@ def bwd_shared_bytes(h: int) -> int:
     """Dynamic shared memory of the backward kernel (csrc/dk_mlp_tail_bwd.cu):
     every operand is padded to the hidden width MAX_HIDDEN, so it is the same
     at every h. Two weights, two weight-gradient accumulators, two pixel
-    tiles, the column sums of 4 row tiles, three vectors and the cotangent."""
+    tiles, the column sums of 4 row tiles, four vectors (b2, b3, fc4 and a
+    row of offsets) and a row of the cotangent."""
     rows, hp = BWD_PIXELS_PER_BLOCK, MAX_HIDDEN
-    return 4 * (4 * hp * hp + 2 * rows * hp + 4 * hp + 3 * hp + rows)
+    return 4 * (4 * hp * hp + 2 * rows * hp + 4 * hp + 4 * hp + rows)
 
 
 def _mlp_tail_cuda(phi_part, offsets, fc2, b2, fc3, b3, fc4, b4):
