@@ -67,7 +67,8 @@ constexpr int kMTiles = kRows / 16;        // 4 row tiles of the (64, 104) produ
 constexpr int kNT = 7;                     // n-tiles a warp of those owns (or 6)
 constexpr int kWNT = kHP / 8;              // 13 n-tiles of a weight-gradient row tile
 constexpr int kWMTiles = (kHP + 15) / 16;  // 7 row tiles of the weight gradients
-constexpr int kSmemFloats = 4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 4 * kHP + kRows;
+constexpr int kSmemFloats =
+    4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 5 * kHP + 3 * kRows;
 static_assert(kThreads / 32 == 2 * kMTiles, "two warps a row tile");
 static_assert(kWMTiles <= kWarps, "a weight-gradient row tile a warp");
 
@@ -158,6 +159,25 @@ __device__ __forceinline__ void weight_grad(float* D, const float* Hs, const flo
   }
 }
 
+// The gap between a pre-activation from the tensor cores and the forward
+// kernel's (sequential fmaf) is below kTau * sum_k |h[k] w[k]|, and that sum is
+// at most |h| |w|: the dropped split terms (3 x 2^-22 a term), the 39 three-pass
+// steps' float32 sums (which may truncate) and the forward's 104 rounded
+// additions come to about 430 x 2^-24; kTau = 2^-13 is 4.8 times that. Where
+// |a| <= kTau |h| |w| the sign of a is taken from forward_dot instead.
+constexpr float kTau = 1.0f / 8192.0f;
+
+// sum_k A[r, k] B[k, n] of two swizzled tiles in the forward kernel's order
+// (fmaf from zero, k ascending; padded k add zeros exactly). Rare, so called
+// rather than inlined at each of the 28 elements of a fragment row.
+__device__ __noinline__ float forward_dot(const float* A, const float* B, int r, int n,
+                                             int ksteps) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < 8 * ksteps; ++k) s = fmaf(A[sw(r, k)], B[sw(k, n)], s);
+  return s;
+}
+
 // v[i][e]: this thread's sum for column 8 (nt0 + i) + 2 t + e. Sums over the
 // warp's 8 row groups (a fixed butterfly), then red[mt][n] = the warp's sum.
 __device__ __forceinline__ void column_sums(float* red, float (&v)[kNT][2], int mt,
@@ -207,7 +227,9 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
   float* b3s = b2s + kHP;
   float* fc4s = b3s + kHP;
   float* offs = fc4s + kHP;                     // (kHP,) this j's off, zero past h
-  float* gs = offs + kHP;                       // (kRows,) this j's cotangent
+  float* w3n = offs + kHP;                      // (kHP,) |fc3[:, n]|
+  float* h2n = w3n + kHP;                       // (2, kRows) |h2 row|^2, by column half
+  float* gs = h2n + 2 * kRows;                  // (kRows,) this j's cotangent
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -242,6 +264,11 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
   PhiRegs<kVec4> ph;
   ph.load(phi, p0, HW, h);
   __syncthreads();
+  if (tid < kHP) {
+    float s = 0.0f;
+    for (int k = 0; k < kHP; ++k) s = fmaf(W3[sw(k, tid)], W3[sw(k, tid)], s);
+    w3n[tid] = sqrtf(s);
+  }
 
   float dphi_acc[kNT][4];
   float dfc4_acc[kNT][2], db3_acc[kNT][2], db2_acc[kNT][2];
@@ -274,17 +301,32 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
     ph.build_h1(X, offs);
     __syncthreads();
 
-    // Y = h2 = relu(h1 fc2 + b2)
+    // Y = h2 = relu(h1 fc2 + b2), bit for bit the forward's; |h2 row|^2
     float acc[kNT][4] = {};
     frag_fma<kNT>(acc, X, W2, m0, nt0, ntc, ksteps);
+    {
+      float sq_a = 0.0f, sq_b = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kNT; ++i) {
-      if (i < ntc) {
-        const float2 bb = *reinterpret_cast<const float2*>(b2s + 8 * (nt0 + i) + 2 * t);
-        *reinterpret_cast<float2*>(Y + row_a + 8 * i) =
-            make_float2(fmaxf(acc[i][0] + bb.x, 0.0f), fmaxf(acc[i][1] + bb.y, 0.0f));
-        *reinterpret_cast<float2*>(Y + row_b + 8 * i) =
-            make_float2(fmaxf(acc[i][2] + bb.x, 0.0f), fmaxf(acc[i][3] + bb.y, 0.0f));
+      for (int i = 0; i < kNT; ++i) {
+        if (i < ntc) {
+          const float2 bb = *reinterpret_cast<const float2*>(b2s + 8 * (nt0 + i) + 2 * t);
+          const float2 ya = make_float2(fmaxf(acc[i][0] + bb.x, 0.0f),
+                                        fmaxf(acc[i][1] + bb.y, 0.0f));
+          const float2 yb = make_float2(fmaxf(acc[i][2] + bb.x, 0.0f),
+                                        fmaxf(acc[i][3] + bb.y, 0.0f));
+          *reinterpret_cast<float2*>(Y + row_a + 8 * i) = ya;
+          *reinterpret_cast<float2*>(Y + row_b + 8 * i) = yb;
+          sq_a = fmaf(ya.x, ya.x, fmaf(ya.y, ya.y, sq_a));
+          sq_b = fmaf(yb.x, yb.x, fmaf(yb.y, yb.y, sq_b));
+        }
+      }
+      sq_a += __shfl_xor_sync(0xffffffffu, sq_a, 1);
+      sq_a += __shfl_xor_sync(0xffffffffu, sq_a, 2);
+      sq_b += __shfl_xor_sync(0xffffffffu, sq_b, 1);
+      sq_b += __shfl_xor_sync(0xffffffffu, sq_b, 2);
+      if (t == 0) {
+        h2n[nt0 / kNT * kRows + m0 + gq] = sq_a;
+        h2n[nt0 / kNT * kRows + m0 + gq + 8] = sq_b;
       }
     }
     __syncthreads();
@@ -295,10 +337,15 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
     }
-    frag_fma<kNT>(acc, Y, W3, m0, nt0, ntc, ksteps);
+    frag_mma<false, false, kNT>(acc, Y, W3, m0, nt0, ntc, ksteps, true);
     {
       const float ga = gs[m0 + gq];
       const float gb = gs[m0 + gq + 8];
+      // where the sign of a3 is not certain, the forward's own a3
+      const float tau_a = kTau * sqrtf(h2n[m0 + gq] + h2n[kRows + m0 + gq]);
+      const float tau_b = kTau * sqrtf(h2n[m0 + gq + 8] + h2n[kRows + m0 + gq + 8]);
+      const bool live_a = p0 + m0 + gq < HW;
+      const bool live_b = p0 + m0 + gq + 8 < HW;
 #pragma unroll
       for (int i = 0; i < kNT; ++i) {
         if (i < ntc) {
@@ -307,7 +354,13 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float gr = e < 2 ? ga : gb;
-            const float h3 = fmaxf(acc[i][e] + b3s[n + (e & 1)], 0.0f);
+            const int ne = n + (e & 1);
+            float a3 = acc[i][e] + b3s[ne];
+            if ((e < 2 ? live_a : live_b) && ne < h &&
+                fabsf(a3) <= (e < 2 ? tau_a : tau_b) * w3n[ne]) {
+              a3 = forward_dot(Y, W3, m0 + gq + 8 * (e >> 1), ne, ksteps) + b3s[ne];
+            }
+            const float h3 = fmaxf(a3, 0.0f);
             d[e] = h3 > 0.0f ? gr * fc4s[n + (e & 1)] : 0.0f;
             dfc4_acc[i][e & 1] = fmaf(h3, gr, dfc4_acc[i][e & 1]);
             db3_acc[i][e & 1] += d[e];
