@@ -1,6 +1,5 @@
-// Warp-level tile products for the DK/STDK MLP tail backward
-// (dk_mlp_tail_bwd.cu): on the tensor cores at float32 accuracy (3xTF32,
-// frag_mma), or on the CUDA cores in the forward kernel's order (frag_fma).
+// Warp-level tile products on the tensor cores at float32 accuracy (3xTF32),
+// for the DK/STDK MLP tail backward (dk_mlp_tail_bwd.cu).
 //
 // Every operand lives in shared memory as a row-major tile of kS = 104 floats
 // a row (the hidden width padded to a multiple of 8 with zeros), swizzled:
@@ -91,7 +90,7 @@ __device__ __forceinline__ void frag_mma(float (&acc)[NT][4], const float* A,
   const int ka = kAT ? 8 * kS : 8;
   const int kb = kBT ? 8 : 8 * kS;
   const int nb = kBT ? 8 * kS : 8;  // the next n-tile of B
-#pragma unroll 1
+#pragma unroll 2
   for (int s = 0; s < ksteps; ++s) {
     uint32_t ah[4], al[4];
 #pragma unroll
@@ -108,48 +107,6 @@ __device__ __forceinline__ void frag_mma(float (&acc)[NT][4], const float* A,
         mma_tf32(acc[i], al, bh);
         mma_tf32(acc[i], ah, bl);
         mma_tf32(acc[i], ah, bh);
-      }
-    }
-  }
-}
-
-// acc[i] += A(m0 .. m0 + 15, 0 .. 8 ksteps) B(same k, n-tile nt0 + i) on the
-// CUDA cores, A and B read plain, with frag_mma's fragment ownership, in the
-// forward kernel's arithmetic: each output a float32 sum over k in ascending
-// order, fmaf from zero, as dk_mlp_tile.cuh's tile_gemm forms it (a padded k
-// adds fmaf(0, 0, acc) = acc). So a forward recomputed here is bit for bit
-// the one dk_mlp_tail.cu computed. Four k a step: a float4 of each of the
-// thread's two A rows and a float2 of B a k and n-tile, 30 conflict-free
-// shared loads for 112 fmaf.
-template <int NT>
-__device__ __forceinline__ void frag_fma(float (&acc)[NT][4], const float* A,
-                                         const float* B, int m0, int nt0, int ntc,
-                                         int ksteps) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int sg = g & 4;
-  const float* a0 = A + (m0 + g) * kS;
-  const float* a1 = a0 + 8 * kS;  // row m0 + g + 8: the same swizzle
-  const int n0 = 8 * nt0 + 2 * (lane & 3);
-#pragma unroll 1
-  for (int k = 0; k < 8 * ksteps; k += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a0 + (k ^ sg));
-    const float4 x1 = *reinterpret_cast<const float4*>(a1 + (k ^ sg));
-    const float r0[4] = {x0.x, x0.y, x0.z, x0.w};
-    const float r1[4] = {x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* brow = B + (k + kk) * kS;
-      const int bsw = (k + kk) & 4;
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        if (i < ntc) {
-          const float2 b = *reinterpret_cast<const float2*>(brow + ((n0 + 8 * i) ^ bsw));
-          acc[i][0] = fmaf(r0[kk], b.x, acc[i][0]);
-          acc[i][1] = fmaf(r0[kk], b.y, acc[i][1]);
-          acc[i][2] = fmaf(r1[kk], b.x, acc[i][2]);
-          acc[i][3] = fmaf(r1[kk], b.y, acc[i][3]);
-        }
       }
     }
   }

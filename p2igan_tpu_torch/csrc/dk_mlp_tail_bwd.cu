@@ -15,21 +15,24 @@
 //     its partial, and doff[j] is written as a per-block partial every j;
 //   - a second kernel sums the partials over the blocks in block order, so a
 //     training run repeats bit for bit.
-// Per j the block runs six tile products (dk_mlp_mma.cuh), every operand
-// stored once in a swizzled (rows, 104) tile and read plain or transposed.
-// The two transposed and the two weight-gradient products run on the tensor
-// cores in 3xTF32 (float32 accuracy, fixed order). The two recomputed ones
-// stay on the CUDA cores in the forward kernel's own arithmetic (dk_mlp_tail.cu,
-// sequential fmaf), so the relu masks are bit for bit the forward's: on the
-// tensor cores the few of the 3e8 pre-activations a layer that lie within
-// float32 rounding of zero may change sign, and a flipped mask moves a pixel's
-// dphi by a whole unit's share (1.5e-2 x max|plain| at the training shape,
-// against a tolerance of 1e-4).
+// Per j the block runs six tile products, every operand stored once in a
+// swizzled (rows, 104) tile and read plain or transposed:
 //   X = h1                      ; Y = h2 = relu(X fc2 + b2)
 //   a3 = Y fc3 + b3, h3 = relu  ; dfc4 += h3^T g ; X = da3 = g fc4 [h3 > 0]
 //   dfc3 += Y^T X               ; dh2 = X fc3^T  ; da2 = dh2 [h2 > 0]
 //   X = da2, Y = h1             ; dfc2 += Y^T X  ; dh1 = X fc2^T
 //   da1 = dh1 [h1 > 0]          ; dphi += da1    ; doff[j] = column sums of da1
+// Five run on the tensor cores in 3xTF32 (dk_mlp_mma.cuh: float32 accuracy,
+// fixed order). The relu masks must be bit for bit those of the forward
+// kernel (dk_mlp_tail.cu, sequential fmaf): of the 3e8 pre-activations a
+// layer at the training shape a few lie within rounding of zero, and one
+// flipped mask moves a pixel's dphi by a whole unit's share (1.5e-2 x
+// max|plain| with every product on the tensor cores, against a tolerance of
+// 1e-4). So h2 = relu(h1 fc2 + b2) stays on the CUDA cores in the forward's
+// own order (forward_layer: h2 is then bitwise the forward's), and the mask
+// of a3 is certified: where |a3| is below a bound on the gap between the two
+// sums (kTau |h2 row| |fc3 column|), the element is recomputed in the
+// forward's order (forward_dot); about 1e-3 of them at the training shape.
 //
 // Bound on the H100: operations, six products of 2 h^2 flops per (j, pixel):
 // J * HW * (12 h^2 + 10 h), 3.8e11 at J = 192, HW = 16384, h = 100, 5.7 ms
@@ -38,17 +41,20 @@
 // the partials (20 MB each way at 256 blocks).
 //
 // Tiling. The hidden width is padded to 104 (13 n-tiles of 8) with zeros, so
-// padded lanes add exact zeros. Shared memory (229,472 bytes at every h <=
+// padded lanes add exact zeros. Shared memory (230,304 bytes at every h <=
 // 104): fc2 and fc3 (86.5 KB), the dfc2 and dfc3 accumulators (86.5 KB), two
-// (64, 104) activation tiles (53 KB) and the column sums; that is one block
-// of 8 warps per SM, 256 blocks of 64 pixels at HW = 16384, 1.94 waves on 132
-// SMs. No room is left for a phi tile, so h1 = relu(phi + off[j]) is rebuilt
-// from device memory (the L2 holds phi) twice per j, a warp a row, with
-// float4 loads where h % 4 == 0. The four (64, 104) products give warp w rows
-// 16 (w % 4) .. + 15 and n-tiles 0-6 (w < 4) or 7-12; the two (104, 104)
-// weight-gradient products give warp w < 7 rows 16 w .. + 15 of the
-// accumulator, all 13 n-tiles (warp 7 waits), read from and written back to
-// shared memory around the product.
+// (64, 104) activation tiles (53 KB), the column sums and five vectors; that
+// is one block of 8 warps per SM (the registers are full too: 255 a thread),
+// 256 blocks of 64 pixels at HW = 16384, 1.94 waves on 132 SMs. No room is
+// left for a phi tile: each thread holds its 28 floats of the block's phi
+// tile in registers for the whole j loop, h1 = relu(phi + off[j]) is rebuilt
+// from them twice per j, and off and g of the next j are fetched at the top
+// of a j and stored after their last read, so the j loop reads no device
+// memory on its critical path. The (64, 104) tensor-core products give warp
+// w rows 16 (w % 4) .. + 15 and n-tiles 0-6 (w < 4) or 7-12; the two
+// (104, 104) weight-gradient products give warp w < 7 rows 16 w .. + 15, all
+// 13 n-tiles (warp 7 waits), summed from zero each j and added to the shared
+// accumulator once (the tensor cores' own float32 sums drift over 192 j).
 
 #include <cuda_runtime.h>
 
@@ -68,7 +74,7 @@ constexpr int kNT = 7;                     // n-tiles a warp of those owns (or 6
 constexpr int kWNT = kHP / 8;              // 13 n-tiles of a weight-gradient row tile
 constexpr int kWMTiles = (kHP + 15) / 16;  // 7 row tiles of the weight gradients
 constexpr int kSmemFloats =
-    4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 5 * kHP + 3 * kRows;
+    4 * kHP * kS + 2 * kRows * kS + kMTiles * kHP + 5 * kHP + kRows;
 static_assert(kThreads / 32 == 2 * kMTiles, "two warps a row tile");
 static_assert(kWMTiles <= kWarps, "a weight-gradient row tile a warp");
 
@@ -159,6 +165,70 @@ __device__ __forceinline__ void weight_grad(float* D, const float* Hs, const flo
   }
 }
 
+// Y (kRows, kS) = relu(X W + bias) on the CUDA cores in the forward kernel's
+// arithmetic (dk_mlp_tail.cu through dk_mlp_tile.cuh's tile_gemm): each
+// output a float32 sum over k in ascending order, fmaf from zero (a padded k
+// adds fmaf(0, 0, acc) = acc), then relu(acc + bias); so the result is bit
+// for bit the forward's. Thread (ty, tx) < (8, 26) owns rows 8 ty .. + 7 and
+// columns 4 tx .. + 3; four k a step read a float4 of each of its rows and of
+// W's 4 columns a k: 12 shared loads for 128 fmaf. The last 48 threads wait.
+__device__ __forceinline__ void forward_layer(float* Y, const float* X, const float* W,
+                                              const float* bias, int ksteps) {
+  constexpr int kRowsT = 8;
+  constexpr int kColT = kHP / 4;  // 26 column groups
+  static_assert(kRows / kRowsT * kColT <= kThreads, "a thread a block of 8 x 4");
+  const int tid = threadIdx.x;
+  if (tid >= kRows / kRowsT * kColT) return;
+  const int ty = tid / kColT;
+  const int c0 = 4 * (tid - ty * kColT);
+  const float* xr = X + kRowsT * ty * kS;
+  float acc[kRowsT][4] = {};
+#pragma unroll 1
+  for (int k = 0; k < 8 * ksteps; k += 4) {
+    float4 a[kRowsT];
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(xr + i * kS + (k ^ (i & 4)));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int kr = k + kk;
+      const float4 b = *reinterpret_cast<const float4*>(W + kr * kS + (c0 ^ (kr & 4)));
+#pragma unroll
+      for (int i = 0; i < kRowsT; ++i) {
+        const float x = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+        acc[i][0] = fmaf(x, b.x, acc[i][0]);
+        acc[i][1] = fmaf(x, b.y, acc[i][1]);
+        acc[i][2] = fmaf(x, b.z, acc[i][2]);
+        acc[i][3] = fmaf(x, b.w, acc[i][3]);
+      }
+    }
+  }
+  const float4 bb = *reinterpret_cast<const float4*>(bias + c0);
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+    *reinterpret_cast<float4*>(Y + (kRowsT * ty + i) * kS + (c0 ^ (i & 4))) =
+        make_float4(fmaxf(acc[i][0] + bb.x, 0.0f), fmaxf(acc[i][1] + bb.y, 0.0f),
+                    fmaxf(acc[i][2] + bb.z, 0.0f), fmaxf(acc[i][3] + bb.w, 0.0f));
+  }
+}
+
+// Lane l < 16 of the result: |row l| of the 16 tile rows at T (the norm of
+// the whole padded row), each summed in a fixed order.
+__device__ __forceinline__ float row_norm(const float* T) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane & 15;
+  const int c0 = (lane >> 4) * (kHP / 2);
+  float s = 0.0f;
+#pragma unroll 4
+  for (int c = c0; c < c0 + kHP / 2; ++c) {
+    const float v = T[sw(r, c)];
+    s = fmaf(v, v, s);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 16);
+  return sqrtf(s);
+}
+
 // The gap between a pre-activation from the tensor cores and the forward
 // kernel's (sequential fmaf) is below kTau * sum_k |h[k] w[k]|, and that sum is
 // at most |h| |w|: the dropped split terms (3 x 2^-22 a term), the 39 three-pass
@@ -228,8 +298,7 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
   float* fc4s = b3s + kHP;
   float* offs = fc4s + kHP;                     // (kHP,) this j's off, zero past h
   float* w3n = offs + kHP;                      // (kHP,) |fc3[:, n]|
-  float* h2n = w3n + kHP;                       // (2, kRows) |h2 row|^2, by column half
-  float* gs = h2n + 2 * kRows;                  // (kRows,) this j's cotangent
+  float* gs = w3n + kHP;                        // (kRows,) this j's cotangent
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -301,49 +370,20 @@ dk_mlp_tail_bwd_kernel(const float* __restrict__ phi, const float* __restrict__ 
     ph.build_h1(X, offs);
     __syncthreads();
 
-    // Y = h2 = relu(h1 fc2 + b2), bit for bit the forward's; |h2 row|^2
-    float acc[kNT][4] = {};
-    frag_fma<kNT>(acc, X, W2, m0, nt0, ntc, ksteps);
-    {
-      float sq_a = 0.0f, sq_b = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        if (i < ntc) {
-          const float2 bb = *reinterpret_cast<const float2*>(b2s + 8 * (nt0 + i) + 2 * t);
-          const float2 ya = make_float2(fmaxf(acc[i][0] + bb.x, 0.0f),
-                                        fmaxf(acc[i][1] + bb.y, 0.0f));
-          const float2 yb = make_float2(fmaxf(acc[i][2] + bb.x, 0.0f),
-                                        fmaxf(acc[i][3] + bb.y, 0.0f));
-          *reinterpret_cast<float2*>(Y + row_a + 8 * i) = ya;
-          *reinterpret_cast<float2*>(Y + row_b + 8 * i) = yb;
-          sq_a = fmaf(ya.x, ya.x, fmaf(ya.y, ya.y, sq_a));
-          sq_b = fmaf(yb.x, yb.x, fmaf(yb.y, yb.y, sq_b));
-        }
-      }
-      sq_a += __shfl_xor_sync(0xffffffffu, sq_a, 1);
-      sq_a += __shfl_xor_sync(0xffffffffu, sq_a, 2);
-      sq_b += __shfl_xor_sync(0xffffffffu, sq_b, 1);
-      sq_b += __shfl_xor_sync(0xffffffffu, sq_b, 2);
-      if (t == 0) {
-        h2n[nt0 / kNT * kRows + m0 + gq] = sq_a;
-        h2n[nt0 / kNT * kRows + m0 + gq + 8] = sq_b;
-      }
-    }
+    // Y = h2 = relu(h1 fc2 + b2), bit for bit the forward's
+    forward_layer(Y, X, W2, b2s, ksteps);
     __syncthreads();
 
     // h3 = relu(h2 fc3 + b3); dfc4 += h3^T g; X = da3 = g fc4 [h3 > 0]
-#pragma unroll
-    for (int i = 0; i < kNT; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-    }
+    float acc[kNT][4] = {};
     frag_mma<false, false, kNT>(acc, Y, W3, m0, nt0, ntc, ksteps, true);
     {
       const float ga = gs[m0 + gq];
       const float gb = gs[m0 + gq + 8];
       // where the sign of a3 is not certain, the forward's own a3
-      const float tau_a = kTau * sqrtf(h2n[m0 + gq] + h2n[kRows + m0 + gq]);
-      const float tau_b = kTau * sqrtf(h2n[m0 + gq + 8] + h2n[kRows + m0 + gq + 8]);
+      const float nrm = row_norm(Y + m0 * kS);
+      const float tau_a = kTau * __shfl_sync(0xffffffffu, nrm, gq);
+      const float tau_b = kTau * __shfl_sync(0xffffffffu, nrm, gq + 8);
       const bool live_a = p0 + m0 + gq < HW;
       const bool live_b = p0 + m0 + gq + 8 < HW;
 #pragma unroll

@@ -102,10 +102,9 @@ def bwd_shared_bytes(h: int) -> int:
     every operand is padded to the hidden width MAX_HIDDEN, so it is the same
     at every h. Two weights, two weight-gradient accumulators, two pixel
     tiles, the column sums of 4 row tiles, five vectors (b2, b3, fc4, a row
-    of offsets, fc3's column norms) and three of the pixels (two halves of
-    the h2 row norms, a row of the cotangent)."""
+    of offsets, fc3's column norms) and a row of the cotangent."""
     rows, hp = BWD_PIXELS_PER_BLOCK, MAX_HIDDEN
-    return 4 * (4 * hp * hp + 2 * rows * hp + 4 * hp + 5 * hp + 3 * rows)
+    return 4 * (4 * hp * hp + 2 * rows * hp + 4 * hp + 5 * hp + rows)
 
 
 def _mlp_tail_cuda(phi_part, offsets, fc2, b2, fc3, b3, fc4, b4):
