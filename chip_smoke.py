@@ -1891,15 +1891,18 @@ def dk_tail_inputs(dev, batch: int):
 
 def check_mlp_tail(dev) -> dict:
     """Kernel #12 at the serving (J=128) and training (J=192) shapes, within
-    1e-5 x max|plain|; both sides' distance to a float64 plain version. The
-    plain version is the chain of three ``torch.matmul`` products (cuBLAS) over
-    8 offset rows at a time, so its time is also printed as
-    ``cublas_chain_ms``; the port never runs it on a CUDA tensor."""
+    1e-5 x max|plain|, two launches bitwise equal; both sides' distance to a
+    float64 plain version. Timed a call (CUDA events) and as device time
+    (CUDA-graph replay), each beside the float32 bound. The plain version is
+    the chain of three ``torch.matmul`` products (cuBLAS) over 8 offset rows
+    at a time, so its time is also printed as ``cublas_chain_ms``; the port
+    never runs it on a CUDA tensor."""
     result = {}
     for batch in (WINDOW_BATCH, TRAIN_BATCH):
         args = dk_tail_inputs(dev, batch)
         J, hw, h = args[1].shape[0], args[0].shape[0], args[0].shape[1]
         out_k, out_p = mlp_tail_fused(*args), mlp_tail_reference(*args)
+        again = mlp_tail_fused(*args)
         out_64 = mlp_tail_reference(*(a.double() for a in args))
         torch.cuda.synchronize()
         scale = float(out_p.abs().max())
@@ -1908,15 +1911,20 @@ def check_mlp_tail(dev) -> dict:
         e_p64 = float((out_p.double() - out_64).abs().max())
         if not (scale > 0 and e <= 1e-5 * scale):
             fail(f"mlp_tail_fused J={J}: max abs err {e} > 1e-5 x {scale}")
+        if not bitwise_equal(out_k, again):
+            fail(f"mlp_tail_fused J={J}: two launches differ")
         k_ms = cuda_ms(lambda: mlp_tail_fused(*args))
+        g_ms = graph_ms(lambda i: mlp_tail_fused(*args), 1)
         p_ms = cuda_ms(lambda: mlp_tail_reference(*args), reps=5)
         flops = J * hw * (4 * h * h + 4 * h)
         nbytes = 4 * (hw * h + J * h + 2 * h * h + 3 * h + 1 + J * hw)
         b = bound(nbytes, flops)
         print(f"mlp_tail_fused J={J} HW={hw} h={h}: max abs err {e:.3e} "
               f"({e / scale:.2e} x max|plain| {scale:.3f}); to float64: kernel "
-              f"{e_k64:.3e}, plain {e_p64:.3e}; kernel {k_ms:.4f} ms "
-              f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
+              f"{e_k64:.3e}, plain {e_p64:.3e}; two launches bitwise equal; kernel "
+              f"{k_ms:.4f} ms a call ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+              f"{b['bound_ms'] / k_ms:.3f} of the bound), device {g_ms:.4f} ms "
+              f"({b['bound_ms'] / g_ms:.3f} of the bound); plain {p_ms:.4f} ms "
               f"(cublas_chain_ms {p_ms:.4f}), bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})")
         # the kernels line reports the training shape (the larger J); the

@@ -166,7 +166,7 @@ __device__ __forceinline__ void weight_grad(float* D, const float* Hs, const flo
 }
 
 // Y (kRows, kS) = relu(X W + bias) on the CUDA cores in the forward kernel's
-// arithmetic (dk_mlp_tail.cu through dk_mlp_tile.cuh's tile_gemm): each
+// arithmetic (dk_mlp_tail.cu's tile_product and its header's contract): each
 // output a float32 sum over k in ascending order, fmaf from zero (a padded k
 // adds fmaf(0, 0, acc) = acc), then relu(acc + bias); so the result is bit
 // for bit the forward's. Thread (ty, tx) < (8, 26) owns rows 8 ty .. + 7 and

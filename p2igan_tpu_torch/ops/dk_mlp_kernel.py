@@ -32,8 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from . import cuda_lib
 from .cuda_lib import MAX_SHARED_BYTES
 
-MAX_HIDDEN = 104          # csrc/dk_mlp_tile.cuh: kTX * 8 output columns a block
-FWD_PIXELS_PER_BLOCK = 128  # csrc/dk_mlp_tail.cu kRows
+MAX_HIDDEN = 104          # csrc/dk_mlp_tail.cu kHP: 13 column owners x 8
+FWD_PIXELS_PER_BLOCK = 128  # csrc/dk_mlp_tail.cu kRows: pixels a tile
 BWD_PIXELS_PER_BLOCK = 64   # csrc/dk_mlp_tail_bwd.cu kRows
 
 
@@ -94,9 +94,13 @@ def _check_tail_args(name, phi_part, offsets, fc2, b2, fc3, b3, fc4):
 
 
 def fwd_shared_bytes(h: int) -> int:
-    """Dynamic shared memory of the forward kernel (csrc/dk_mlp_tail.cu)."""
-    rows, stride = FWD_PIXELS_PER_BLOCK, FWD_PIXELS_PER_BLOCK + 4
-    return 4 * (2 * h * h + 2 * h * stride + 13 * (rows + 1) + 5 * h)
+    """Dynamic shared memory of the forward kernel (csrc/dk_mlp_tail.cu):
+    every operand is padded to the hidden width MAX_HIDDEN, so it is the same
+    at every h. Two weights, the phi tile and the activation tile (k-major,
+    row stride rows + 4), the 13 fc4 partials of a tile, five vectors (b2,
+    b3, fc4 and two rows of offsets)."""
+    hp, stride = MAX_HIDDEN, FWD_PIXELS_PER_BLOCK + 4
+    return 4 * (2 * hp * hp + 2 * hp * stride + 13 * stride + 5 * hp)
 
 
 def bwd_shared_bytes(h: int) -> int:

@@ -1,23 +1,36 @@
-"""Time kernel #13, the DK/STDK MLP tail backward, of several source trees on one card.
+"""Time the dk/stdk MLP tail kernels of several source trees on one card:
+#13, the backward (``--kernel bwd``, the default), or #12, the forward
+(``--kernel fwd``).
 
-    python scripts/time_dk_tail_bwd.py [--tree LABEL=DIR ...] [--reps 10] [--out FILE]
+    python scripts/time_dk_tail_bwd.py [--kernel fwd|bwd] [--tree LABEL=DIR ...]
+                                       [--reps 10] [--rounds 2] [--out FILE]
 
-Each tree is a checkout root; this checkout is always the tree ``this``. The
-tree's ``p2igan_tpu_torch/csrc/dk_mlp_tail_bwd.cu`` is compiled alone, with
-this checkout's nvcc flags, into a library of its own (all trees' nvcc
-processes at once), and its C entry point is called on ``chip_smoke.py``'s
-training-shape inputs (J = 192, HW = 16384, h = 100). So two versions of the
-kernel (say the parent commit's, unpacked with ``git archive`` into an ignored
-directory, and this one) are compared on one card in one process.
+Each tree is a checkout root; this checkout is always the tree ``this``, the
+last. The tree's kernel source (``p2igan_tpu_torch/csrc/dk_mlp_tail_bwd.cu``
+or ``dk_mlp_tail.cu``) is compiled alone, with this checkout's nvcc flags,
+into a library of its own (all trees' nvcc processes at once), and its C
+entry point is called directly. So two versions of a kernel (say the parent
+commit's, unpacked with ``git archive`` into an ignored directory, and this
+one) are compared on one card in one process.
 
-For every tree: the seven gradients against the plain version on the card
-(``chip_smoke.py``'s tolerances: 1e-4 x max|plain| for dphi and doff, 1e-3 for
-the weight and bias gradients; a tree outside them is still timed, marked
-``"ok": false``, and the script exits 1), a bitwise repeat, the median CUDA-event time of
-one call over ``--reps`` calls and the device time of one call in a CUDA-graph
-replay. The trees are timed in rounds that visit them forward and then
-backward (A B B A), and each tree's medians are taken over all its rounds.
-Prints the card's name and power limit, then one JSON line.
+bwd: ``chip_smoke.py``'s training-shape inputs (J = 192, HW = 16384, h =
+100). For every tree the seven gradients against the plain version on the
+card (``chip_smoke.py``'s tolerances: 1e-4 x max|plain| for dphi and doff,
+1e-3 for the weight and bias gradients; a tree outside them is still timed,
+marked ``"ok": false``, and the script exits 1) and a bitwise repeat.
+
+fwd: ``chip_smoke.py``'s inputs at J = 128 (serving) and J = 192 (training)
+and every ``TAIL_SHAPES`` case of ``tests/test_torch_cuda.py``. For every
+tree the output against the plain version (1e-5 x max|plain|), a bitwise
+repeat, and whether it is bitwise equal to the first tree's output at every
+shape: a tree that is not (or fails either check) is marked ``"ok": false``
+and the script exits 1. Timed at the two full-width shapes.
+
+Timing: the median CUDA-event time of one call over ``--reps`` calls and the
+device time of one call in a CUDA-graph replay. The trees are timed in rounds
+that visit them forward and then backward (A B B A), and each tree's medians
+are taken over all its rounds. Prints the card's name and power limit, then
+one JSON line.
 """
 
 from __future__ import annotations
@@ -43,22 +56,30 @@ import torch
 
 import chip_smoke
 from p2igan_tpu_torch.ops import cuda_lib
-from p2igan_tpu_torch.ops.dk_mlp_kernel import mlp_tail_bwd_reference
+from p2igan_tpu_torch.ops.dk_mlp_kernel import mlp_tail_bwd_reference, mlp_tail_reference
 
 REPO = Path(_repo)
-SOURCE = Path("p2igan_tpu_torch") / "csrc" / "dk_mlp_tail_bwd.cu"
+CSRC = Path("p2igan_tpu_torch") / "csrc"
+# kernel -> (source, C entry point, its argument types)
+KERNELS = {
+    "bwd": ("dk_mlp_tail_bwd.cu", "p2i_dk_mlp_tail_bwd",
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "fwd": ("dk_mlp_tail.cu", "p2i_dk_mlp_tail",
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
 BUILD = REPO / "build" / "time_dk_tail_bwd"
 NAMES = ("dphi", "doff", "dfc2", "db2", "dfc3", "db3", "dfc4")
 
 
-def build(trees: dict) -> dict:
-    """label -> (loaded entry point, pixels a block), every tree compiled at once."""
+def build(trees: dict, kernel: str) -> dict:
+    """label -> (loaded entry point, its source's text), every tree compiled at once."""
     BUILD.mkdir(parents=True, exist_ok=True)
+    source, entry, argtypes = KERNELS[kernel]
     nvcc = cuda_lib._nvcc()
     jobs = {}
     for label, root in trees.items():
-        src = root / SOURCE
-        out = BUILD / f"{label}.so"
+        src = root / CSRC / source
+        out = BUILD / f"{kernel}.{label}.so"
         cmd = [nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(out), str(src)]
         jobs[label] = (src, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.STDOUT, text=True))
@@ -70,16 +91,15 @@ def build(trees: dict) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas [{label}]: {line.strip()}")
-        rows = int(re.search(r"constexpr int kRows = (\d+);", src.read_text()).group(1))
-        fn = ctypes.CDLL(str(out)).p2i_dk_mlp_tail_bwd
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(out)), entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        built[label] = (fn, rows)
+        built[label] = (fn, src.read_text())
     return built
 
 
-def caller(fn, rows: int, args):
-    """A call of one tree's entry point with the wrapper's scratch layout."""
+def bwd_caller(fn, rows: int, args):
+    """A call of one tree's #13 entry point with the wrapper's scratch layout."""
     phi, off, g, fc2, b2, fc3, b3, fc4 = args
     (HW, h), J = phi.shape, off.shape[0]
     nblk = -(-HW // rows)
@@ -99,8 +119,106 @@ def caller(fn, rows: int, args):
     return call
 
 
+def fwd_caller(fn, args):
+    """A call of one tree's #12 entry point: (J, HW) out."""
+    phi, off = args[0], args[1]
+    (HW, h), J = phi.shape, off.shape[0]
+
+    def call():
+        out = torch.empty((J, HW), device=phi.device)
+        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), HW, J, h,
+                cuda_lib.stream_of(phi))
+        cuda_lib.check(rc, "p2i_dk_mlp_tail")
+        return out
+    return call
+
+
+def check_bwd(built, dev, result, failed) -> dict:
+    """#13 at the training shape; returns label -> call to time."""
+    inputs = chip_smoke.dk_tail_inputs(dev, chip_smoke.TRAIN_BATCH)
+    phi, off, fc2, b2, fc3, b3, fc4, _ = inputs
+    J, HW, h = off.shape[0], phi.shape[0], phi.shape[1]
+    g = torch.from_numpy(np.random.default_rng(chip_smoke.SEED + 8).standard_normal(
+        (J, HW)).astype(np.float32)).to(dev)
+    tail = (phi, off, g, fc2, b2, fc3, b3, fc4)
+    want = mlp_tail_bwd_reference(*tail)
+    calls = {}
+    for label, (fn, text) in built.items():
+        rows = int(re.search(r"constexpr int kRows = (\d+);", text).group(1))
+        call = calls[label] = bwd_caller(fn, rows, tail)
+        before = len(failed)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(NAMES, got, want):
+            scale = float(b.abs().max())
+            errs[name] = float((a - b).abs().max()) / scale
+            tol = 1e-4 if name in ("dphi", "doff") else 1e-3
+            if not errs[name] <= tol:
+                failed.append(f"{label}: {name} off by {errs[name]:.3e} x max|plain| "
+                              f"(> {tol})")
+        if not all(chip_smoke.bitwise_equal(a, b) for a, b in zip(got, again)):
+            failed.append(f"{label}: two calls differ")
+        print(f"{label}: max err x max|plain| "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+        result["trees"][label] = {"pixels_a_block": rows, "ok": len(failed) == before,
+                                  "err_x_max_plain": errs}
+    result.update(J=J, HW=HW, h=h, shapes={f"J={J}": calls},
+                  flops={f"J={J}": J * HW * (12 * h * h + 10 * h)})
+    return result
+
+
+def check_fwd(built, dev, result, failed) -> dict:
+    """#12 at chip_smoke's two shapes and the card tests' TAIL_SHAPES."""
+    _sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_cuda import TAIL_SHAPES, _tail_inputs
+
+    cases = {f"J={b * chip_smoke.LENGTH}": chip_smoke.dk_tail_inputs(dev, b)
+             for b in (chip_smoke.WINDOW_BATCH, chip_smoke.TRAIN_BATCH)}
+    timed = list(cases)
+    for HW, J, h in TAIL_SHAPES:
+        cases[f"HW={HW},J={J},h={h}"] = _tail_inputs(HW, J, h, dev)
+    first = {}
+    shapes = {name: {} for name in timed}
+    for label, (fn, _) in built.items():
+        before = len(failed)
+        errs, same = {}, {}
+        for name, args in cases.items():
+            call = fwd_caller(fn, args)
+            got, again = call(), call()
+            plain = mlp_tail_reference(*args)
+            torch.cuda.synchronize()
+            scale = float(plain.abs().max())
+            errs[name] = float((got - plain).abs().max()) / scale
+            if not errs[name] <= 1e-5:
+                failed.append(f"{label} {name}: off by {errs[name]:.3e} x max|plain| (> 1e-5)")
+            if not chip_smoke.bitwise_equal(got, again):
+                failed.append(f"{label} {name}: two calls differ")
+            ref = first.setdefault(name, (next(iter(built)), got))
+            same[name] = chip_smoke.bitwise_equal(got, ref[1])
+            if not same[name]:
+                failed.append(f"{label} {name}: not bitwise equal to {ref[0]}'s output "
+                              f"({int((got != ref[1]).sum())} of {got.numel()} differ)")
+            if name in shapes:
+                shapes[name][label] = call
+        print(f"{label}: bitwise equal to {next(iter(built))} at "
+              f"{sum(same.values())} of {len(same)} shapes; max err x max|plain| "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+        result["trees"][label] = {"ok": len(failed) == before, "err_x_max_plain": errs,
+                                  "bitwise_equal_to_first": same}
+    flops = {}
+    for name in timed:
+        phi, off = cases[name][0], cases[name][1]
+        (HW, h), J = phi.shape, off.shape[0]
+        flops[name] = J * HW * (4 * h * h + 4 * h)
+    result.update(shapes=shapes, flops=flops)
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="bwd",
+                        help="bwd: #13 (dk_mlp_tail_bwd.cu); fwd: #12 (dk_mlp_tail.cu)")
     parser.add_argument("--tree", action="append", default=[], metavar="LABEL=DIR",
                         help="another checkout root to time beside this one")
     parser.add_argument("--reps", type=int, default=10)
@@ -123,52 +241,39 @@ def main() -> int:
     print(f"card: {card}")
     chip_smoke.set_precision_policy()
     dev = torch.device("cuda", 0)
-    built = build(trees)
+    built = build(trees, args.kernel)
 
-    inputs = chip_smoke.dk_tail_inputs(dev, chip_smoke.TRAIN_BATCH)
-    phi, off, fc2, b2, fc3, b3, fc4, _ = inputs
-    J, HW, h = off.shape[0], phi.shape[0], phi.shape[1]
-    g = torch.from_numpy(np.random.default_rng(chip_smoke.SEED + 8).standard_normal(
-        (J, HW)).astype(np.float32)).to(dev)
-    tail = (phi, off, g, fc2, b2, fc3, b3, fc4)
-    want = mlp_tail_bwd_reference(*tail)
-    calls = {label: caller(fn, rows, tail) for label, (fn, rows) in built.items()}
-
-    result = {"card": card, "J": J, "HW": HW, "h": h, "trees": {}}
+    result = {"card": card, "kernel": args.kernel, "trees": {}}
     failed = []
-    for label, call in calls.items():
-        before = len(failed)
-        got, again = call(), call()
-        torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(NAMES, got, want):
-            scale = float(b.abs().max())
-            errs[name] = float((a - b).abs().max()) / scale
-            tol = 1e-4 if name in ("dphi", "doff") else 1e-3
-            if not errs[name] <= tol:
-                failed.append(f"{label}: {name} off by {errs[name]:.3e} x max|plain| "
-                              f"(> {tol})")
-        if not all(chip_smoke.bitwise_equal(a, b) for a, b in zip(got, again)):
-            failed.append(f"{label}: two calls differ")
-        print(f"{label}: max err x max|plain| "
-              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
-        result["trees"][label] = {"pixels_a_block": built[label][1], "ok": len(failed) == before,
-                                  "err_x_max_plain": errs, "ms": [], "graph_ms": []}
+    check = check_fwd if args.kernel == "fwd" else check_bwd
+    check(built, dev, result, failed)
+    shapes = result.pop("shapes")
     order = list(result["trees"])
+    times = {name: {label: {"ms": [], "graph_ms": []} for label in order}
+             for name in shapes}
     for _ in range(args.rounds):
         for label in order + order[::-1]:
-            rec = result["trees"][label]
-            rec["ms"].append(chip_smoke.cuda_ms(calls[label], reps=args.reps))
-            rec["graph_ms"].append(chip_smoke.graph_ms(lambda i: calls[label](), 1))
-    flops = J * HW * (12 * h * h + 10 * h)
-    for label, rec in result["trees"].items():
-        rec["median_ms"] = statistics.median(rec["ms"])
-        rec["median_graph_ms"] = statistics.median(rec["graph_ms"])
-        rec["tflops"] = flops / rec["median_ms"] / 1e9
-        print(f"{label}: {rec['median_ms']:.4f} ms a call (rounds {rec['ms']}), graph "
-              f"{rec['median_graph_ms']:.4f} ms, {rec['tflops']:.1f} TFLOP/s")
-    result["float32_bound_ms"] = flops / chip_smoke.PEAK_FLOPS * 1e3
-    result["tf32x3_ideal_ms"] = 3 * flops / chip_smoke.PEAK_TF32_FLOPS * 1e3
+            for name, calls in shapes.items():
+                rec = times[name][label]
+                rec["ms"].append(chip_smoke.cuda_ms(calls[label], reps=args.reps))
+                rec["graph_ms"].append(chip_smoke.graph_ms(lambda i: calls[label](), 1))
+    result["float32_bound_ms"] = {}
+    for name, by_label in times.items():
+        flops = result["flops"][name]
+        bound_ms = flops / chip_smoke.PEAK_FLOPS * 1e3
+        result["float32_bound_ms"][name] = bound_ms
+        for label, rec in by_label.items():
+            rec["median_ms"] = statistics.median(rec["ms"])
+            rec["median_graph_ms"] = statistics.median(rec["graph_ms"])
+            rec["tflops"] = flops / rec["median_ms"] / 1e9
+            rec["bound_share"] = bound_ms / rec["median_ms"]
+            print(f"{label} {name}: {rec['median_ms']:.4f} ms a call (rounds {rec['ms']}), "
+                  f"graph {rec['median_graph_ms']:.4f} ms, {rec['tflops']:.1f} TFLOP/s, "
+                  f"{rec['bound_share']:.3f} of the float32 bound {bound_ms:.4f} ms")
+            result["trees"][label].setdefault("times", {})[name] = rec
+    if args.kernel == "bwd":
+        flops = next(iter(result["flops"].values()))
+        result["tf32x3_ideal_ms"] = 3 * flops / chip_smoke.PEAK_TF32_FLOPS * 1e3
     result["failed"] = failed
     print(card)
     line = json.dumps(result)
@@ -180,6 +285,7 @@ def main() -> int:
         print("time_dk_tail_bwd FAILED: " + "; ".join(failed), file=_sys.stderr)
         return 1
     return 0
+
 
 if __name__ == "__main__":
     _sys.exit(main())

@@ -405,6 +405,35 @@ def test_mlp_tail_kernel_matches_plain(dev, HW, J, h):
     assert float((out.double() - want).abs().max()) <= 1e-5 * scale
 
 
+# and ranges of (tile, j) units that cross pixel tiles: more units than SMs
+ORDER_SHAPES = TAIL_SHAPES + [(1500, 12, 100), (2000, 20, 24)]
+
+
+@pytest.mark.parametrize("HW,J,h", ORDER_SHAPES)
+def test_mlp_tail_kernel_is_its_order_model_bitwise(dev, HW, J, h):
+    """#12 bit for bit the numpy model of its arithmetic
+    (``tests/test_torch_dk_tail_order.py``): sequential fmaf sums, the fc4
+    dot's 13 partials in fixed order. #13's relu masks rely on that order."""
+    from test_torch_dk_tail_order import tail_model
+
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    args = _tail_inputs(HW, J, h, dev)
+    got = M.mlp_tail_fused(*args).cpu().numpy()
+    want = tail_model(*(a.cpu().numpy() for a in args))
+    differ = got.view(np.uint32) != want.view(np.uint32)
+    assert not differ.any(), f"{int(differ.sum())} of {differ.size} outputs differ"
+
+
+def test_mlp_tail_repeats_bitwise_at_full_width(dev):
+    """At the models' pixel count and J = 192 (every SM a range of units)."""
+    from p2igan_tpu_torch.ops import dk_mlp_kernel as M
+
+    args = _tail_inputs(16384, 192, 100, dev, seed=6)
+    first, second = M.mlp_tail_fused(*args), M.mlp_tail_fused(*args)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
 @pytest.mark.parametrize("HW,J,h", TAIL_SHAPES)
 def test_mlp_tail_bwd_kernel_matches_plain(dev, HW, J, h):
     """The eight gradients against float64 autograd of the plain version:
