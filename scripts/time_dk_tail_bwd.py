@@ -251,12 +251,29 @@ def main() -> int:
     order = list(result["trees"])
     times = {name: {label: {"ms": [], "graph_ms": []} for label in order}
              for name in shapes}
+    # the SM clock and power under the timing rounds' load, every 200 ms
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "200"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     for _ in range(args.rounds):
         for label in order + order[::-1]:
             for name, calls in shapes.items():
                 rec = times[name][label]
                 rec["ms"].append(chip_smoke.cuda_ms(calls[label], reps=args.reps))
                 rec["graph_ms"].append(chip_smoke.graph_ms(lambda i: calls[label](), 1))
+    smi.terminate()
+    samples = []
+    for line in smi.communicate()[0].splitlines():
+        try:
+            clock, power = (float(v) for v in line.split(","))
+        except ValueError:         # a field the card does not report
+            continue
+        samples.append((clock, power))
+    if samples:
+        result["sm_clock_mhz_median"] = statistics.median(a for a, _ in samples)
+        result["power_w_median"] = statistics.median(b for _, b in samples)
+        print(f"under the timing rounds: SM clock median {result['sm_clock_mhz_median']:.0f} "
+              f"MHz, power median {result['power_w_median']:.1f} W ({len(samples)} samples)")
     result["float32_bound_ms"] = {}
     for name, by_label in times.items():
         flops = result["flops"][name]
