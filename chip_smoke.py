@@ -298,6 +298,8 @@ CELL_SEARCH_KERNELS = ("cell_init_kernel", "cell_count_kernel", "cell_scan_kerne
                        "cell_scatter_kernel", "cell_decode_kernel", "knn_cells_kernel")
 # the device kernels of one #13 launch: the block partials, then their sums
 TAIL_BWD_KERNELS = ("dk_mlp_tail_bwd_kernel", "sum_block_partials_kernel")
+# and of a #12 launch
+TAIL_FWD_KERNEL = "dk_mlp_tail_kernel"
 SERVING_KERNELS = ("gauge_topk", "combine_table_multi", "maxpool2_duplicate")
 STI_SERVING_KERNELS = ("gauge_topk", "combine_table", "maxpool2_duplicate")
 # the path whose launch count each kernel reports in the kernels line
@@ -2126,11 +2128,16 @@ def train_rec(tmp: Path, card: str, dev, model: str) -> tuple:
     total = sum(summary["kernel_ms"].values())
     tail_bwd = sum(ms for key, ms in summary["kernel_ms"].items()
                    if any(name in key for name in TAIL_BWD_KERNELS))
+    tail_fwd = sum(ms for key, ms in summary["kernel_ms"].items()
+                   if TAIL_FWD_KERNEL in key)
     if not (total > 0 and tail_bwd > 0):
         fail(f"the {model} profile shows no device time for #13 (mlp_tail_bwd)")
+    if not tail_fwd > 0:
+        fail(f"the {model} profile shows no device time for #12 (mlp_tail_fused)")
     print(f"{model} training: of {total:.2f} ms of kernel time in the {summary['steps']} "
           f"profiled steps (device busy {summary['device_busy_ms']:.2f} ms), #13 "
-          f"(mlp_tail_bwd) takes {tail_bwd:.3f} ms = {tail_bwd / total:.4f}")
+          f"(mlp_tail_bwd) takes {tail_bwd:.3f} ms = {tail_bwd / total:.4f}, #12 "
+          f"(mlp_tail_fused) {tail_fwd:.3f} ms = {tail_fwd / total:.4f}")
     return launches, sps
 
 
