@@ -119,9 +119,6 @@ def _mlp_tail_cuda(phi_part, offsets, fc2, b2, fc3, b3, fc4, b4):
     HW, J, h = _check_tail_args(name, phi_part, offsets, fc2, b2, fc3, b3, fc4)
     if b4.numel() != 1:
         raise ValueError(f"{name}: b4 must hold one value, got {tuple(b4.shape)}")
-    if fwd_shared_bytes(h) > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: h={h} needs {fwd_shared_bytes(h)} bytes of "
-                         f"shared memory")
     out = torch.empty((J, HW), device=phi_part.device, dtype=torch.float32)
     with torch.cuda.device(phi_part.device):
         rc = cuda_lib.library().p2i_dk_mlp_tail(
