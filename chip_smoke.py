@@ -47,8 +47,13 @@
      and the dense-field combine (combine_dense) against their plain versions
      at the training shape (B=12, D=16, G=256, HW=16384), the serving shape
      (B=8) and the reference default block size 4 (1024 gauges, G=1152): the
-     two forwards bitwise, the backward within 1e-5 x max|plain| and bitwise
-     equal across two launches;
+     two forwards bitwise, the backward within 1e-5 x max|plain|, bitwise
+     equal across two launches and bitwise equal to the fixed-point sum of
+     the plain selection's terms; a call and the CUDA-graph device time of
+     #5 and #6 beside their bound (per pixel its distinct candidate
+     distances, per (z, pixel) the selection rounds) and their library
+     chains (distances -> ``topk`` -> gather -> weighted sum, or ->
+     ``index_add_``);
    - the batched gauge top-k (12 or 8 masks a launch) against single-mask
      launches, its plain version and the CPU path, bitwise, with the slot
      geometry on the device against the host's numpy, bitwise and timed;
@@ -152,7 +157,8 @@
      compared and printed).
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
-   chain's time where there is one, launches on the kernel's main path), then
+   chain's time, null only for #9, whose chain fits in no card's memory at
+   its batch; launches on the kernel's main path), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed check exits
    non-zero without that line.
 """
@@ -200,9 +206,10 @@ from p2igan_tpu_torch.ops.idw import (extract_points, factored_prepare,
                                       idw_3d_factored)
 from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_dense, combine_dense_reference, combine_table, combine_table_bwd,
-    combine_table_bwd_reference, combine_table_multi, combine_table_multi_bwd,
-    combine_table_multi_bwd_reference, combine_table_multi_reference,
-    combine_table_reference, gauge_topk, gauge_topk_reference)
+    combine_table_bwd_fixed_reference, combine_table_bwd_reference, combine_table_multi,
+    combine_table_multi_bwd, combine_table_multi_bwd_reference,
+    combine_table_multi_reference, combine_table_reference, distinct_frame_table,
+    gauge_topk, gauge_topk_reference, pruned_frame_table)
 from p2igan_tpu_torch.ops.idw_kernel import (
     cell_build_reference, idw_cell_build, idw_knn_bwd_reference, idw_knn_chunked,
     idw_knn_chunked_reference, idw_knn_single, idw_knn_single_reference, prep_points,
@@ -345,8 +352,14 @@ def bound(nbytes: float, flops: float) -> dict:
     the float32 rate, whichever is larger. ``library_ms`` defaults to null; a
     check sets it where PyTorch calls compute the kernel's function: #3's
     ``max_pool2d`` -> ``repeat_interleave`` and #12's and #13's cuBLAS chains
-    (each its plain version), the fused convolutions' cuDNN chains, and the
-    ``torch.cdist`` -> ``topk`` -> gather chain of #8 and #10."""
+    (each its plain version), the fused convolutions' cuDNN chains, the
+    ``torch.cdist`` -> ``topk`` -> gather chain of #8 and #10, the combines'
+    distances -> ``topk`` -> gather -> weighted sum (#2, #5, #7) and that
+    selection -> ``index_add_`` (#4, #6), #1's distances -> ``topk`` and #11's
+    elementwise chain (its plain version). Only #9 has none: no chain over
+    its batch fits in the card's memory. ``topk`` breaks ties in its own
+    order, not the kernels' lowest index, so a chain is a yardstick of
+    time, not of bits."""
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -395,11 +408,17 @@ def check_gauge_topk(masks) -> dict:
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
+    # the library chain: all (pixel, slot) distances, then topk
+    qx, qy, gx, gy, pen = gauge_geometry(masks["random79"], G)[:5]
+    lib_ms = cuda_ms(lambda: torch.topk((qx[:, None] - gx) ** 2 + (qy[:, None] - gy) ** 2
+                                        + pen, K, dim=1, largest=False))
+    print(f"gauge_topk library chain (distances -> topk): {lib_ms:.4f} ms")
     # two coordinates a pixel and three numbers a slot in, k distances and k
     # slot ids a pixel out; 6 flops a (pixel, slot) distance, a k-round scan
     hw = H * W
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound(4 * (2 * hw + 3 * G + 2 * K * hw), hw * G * (6 + K))}
+            **bound(4 * (2 * hw + 3 * G + 2 * K * hw), hw * G * (6 + K)),
+            "library_ms": lib_ms}
 
 
 def check_combine(masks, dev) -> dict:
@@ -432,8 +451,12 @@ def check_combine(masks, dev) -> dict:
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
+            lib_ms = cuda_ms(lambda: library_combine(gd2_t[None], gsel_t[None], tables,
+                                                     shared=True))
+            print(f"combine_table_multi library chain (distances -> topk -> gather -> "
+                  f"weighted sum) on {name}: {lib_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **combine_bound(WINDOW_BATCH)}
+            **combine_bound(WINDOW_BATCH), "library_ms": lib_ms}
 
 
 def combine_bound(n: int) -> dict:
@@ -571,8 +594,12 @@ def check_combine_bwd(masks) -> dict:
               f"(n_tile 12: {wide_ms:.4f} ms), plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms = k_ms, p_ms
+            lib_ms = cuda_ms(lambda: library_combine_bwd(gd2_t[None], gsel_t[None], g, G,
+                                                         shared=True))
+            print(f"combine_table_multi_bwd library chain (selection -> index_add_) on "
+                  f"{name}: {lib_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **combine_bound(TRAIN_BATCH)}
+            **combine_bound(TRAIN_BATCH), "library_ms": lib_ms}
 
 
 def check_decode(dev) -> dict:
@@ -597,9 +624,10 @@ def check_decode(dev) -> dict:
     print(f"decode_normalize_mask{u8.shape} mask {mask.shape}: bitwise equal to "
           f"numpy (kernel and plain); kernel {k_ms:.4f} ms ({gbs:.0f} GB/s), "
           f"plain {p_ms:.4f} ms")
-    # a byte and (once per plane) a mask byte in, two floats out; 2 flops
+    # a byte and (once per plane) a mask byte in, two floats out; 2 flops. The
+    # plain version is the elementwise chain (convert, divide, multiply)
     return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
-            **bound(u8.size * 9 + mask.size, u8.size * 2)}
+            **bound(u8.size * 9 + mask.size, u8.size * 2), "library_ms": p_ms}
 
 
 # -- the per-sample (sti) factored IDW ----------------------------------------
@@ -682,12 +710,61 @@ def check_gauge_topk_batched(dev) -> None:
 
 def sample_combine_bound(batch: int, slots: int) -> dict:
     """Forward and backward of the per-sample combine move the same bytes:
-    (B, k, HW) distances and slots, (B, D, G) tables, the (B, D, HW) field.
-    Per (sample, z, pixel): kf*k = 20 candidate distances (8 flops with the
-    sqrt and the weight), k selection rounds over them, 2 k flops of values."""
-    hw, cand = H * W, 5 * K
+    (B, k, HW) distances and slots, (B, D, G) tables (or their gradient), the
+    (B, D, HW) field (or its cotangent). The work no version can avoid: per
+    (sample, pixel) the nv*k distinct candidate distances (an add and a sqrt
+    each; nv distinct squared z-distances, ``distinct_frame_table``), and per
+    (sample, z, pixel) k rounds over the kf*k candidates (a compare each), k
+    weights (add, divide, multiply, sum), 2 k operations of values and one
+    division."""
+    hw = H * W
+    vals, vmap = distinct_frame_table(LENGTH, K)
+    nv, kf = vals.numel(), vmap.shape[1]
+    per_pixel = 2 * nv * K + LENGTH * (K * kf * K + 4 * K + 2 * K + 1)
     return bound(4 * batch * (2 * K * hw + LENGTH * slots + LENGTH * hw),
-                 batch * LENGTH * hw * (cand * 8 + K * cand + 2 * K))
+                 batch * hw * per_pixel)
+
+
+def library_selection(gd2_t: torch.Tensor, gsel_t: torch.Tensor, slots: int):
+    """The library chains' selection for (B, k, HW) gauge distances and
+    slots: every (z, pixel)'s kf*k candidate distances over the pruned frames
+    at once, ``torch.topk`` of the k smallest, the IDW weights normalized.
+    Returns the (B, D, HW, k) targets frame * G + slot and weights. ``topk``
+    orders ties its own way, not by the lowest candidate as the kernels do."""
+    sel, fd2 = pruned_frame_table(LENGTH, K, str(gd2_t.device))
+    B, kf = gd2_t.shape[0], sel.shape[1]
+    cd = torch.sqrt(gd2_t.transpose(1, 2)[:, None, :, None, :]
+                    + fd2.view(LENGTH, kf, K)[None, :, None])          # (B, D, HW, kf, k)
+    d, c = torch.topk(cd.clamp_max(1e15).flatten(3), K, dim=-1, largest=False)
+    w = torch.where(d < 1e15, (d + 0.05).reciprocal().square(), 0.0)
+    w = w / (w.sum(-1, keepdim=True) + 1e-12)
+    hw = gd2_t.shape[2]
+    frame = torch.gather(sel[None, :, None, :].expand(B, LENGTH, hw, kf), -1, c // K)
+    slot = torch.gather(gsel_t.transpose(1, 2)[:, None].expand(B, LENGTH, hw, K), -1, c % K)
+    return frame * slots + slot, w
+
+
+def library_combine(gd2_t, gsel_t, tables, shared: bool = False):
+    """The combine as PyTorch calls: ``library_selection`` -> gather ->
+    weighted sum; ``shared``: one selection for every window (#2)."""
+    N = tables.shape[0]
+    off, w = library_selection(gd2_t, gsel_t, tables.shape[2])
+    if shared:
+        off, w = off.expand(N, *off.shape[1:]), w.expand(N, *w.shape[1:])
+    vals = torch.gather(tables.reshape(N, -1), 1, off.reshape(N, -1)).view_as(w)
+    return (w * vals).sum(-1)
+
+
+def library_combine_bwd(gd2_t, gsel_t, g, slots: int, shared: bool = False):
+    """The combine's backward as PyTorch calls: ``library_selection`` ->
+    terms w * g -> ``index_add_`` into the (N, D, G) tables."""
+    N = g.shape[0]
+    off, w = library_selection(gd2_t, gsel_t, slots)
+    plane = LENGTH * slots
+    base = torch.arange(N, device=g.device)[:, None, None, None] * plane
+    out = torch.zeros((N * plane,), device=g.device)
+    return out.index_add_(0, (off + base).reshape(-1),
+                          (w * g[..., None]).reshape(-1)).view(N, LENGTH, slots)
 
 
 def sti_selection(dev, batch, block, slots):
@@ -712,21 +789,27 @@ def check_combine_table(dev) -> dict:
             fail(f"combine_table not bitwise equal to its plain version ({label}): "
                  f"max abs err {e}")
         k_ms = cuda_ms(lambda: combine_table(gd2_t, gsel_t, tables, K))
+        g_ms = graph_ms(lambda i: combine_table(gd2_t, gsel_t, tables, K), 1)
         p_ms = cuda_ms(lambda: combine_table_reference(gd2_t, gsel_t, tables, K),
                        reps=3, warmup=1)
+        lib_ms = cuda_ms(lambda: library_combine(gd2_t, gsel_t, tables))
         b_ = sample_combine_bound(batch, slots)
         print(f"combine_table[{label}] B={batch} D={LENGTH} HW={H * W} G={slots} k={K}: "
-              f"bitwise equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+              f"bitwise equal; kernel {k_ms:.4f} ms (device {g_ms:.4f} ms, "
+              f"{b_['bound_ms'] / g_ms:.4f} of the bound), plain {p_ms:.4f} ms, library "
+              f"chain {lib_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
         if not result:
-            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_,
+                      "library_ms": lib_ms}
     return result
 
 
 def check_combine_table_bwd(dev) -> dict:
     """Kernel #6 at the same three shapes: max abs error <= 1e-5 x max|plain|
-    (64-bit fixed-point sums against float32 ones in autograd's order), and
-    bitwise equal across two launches."""
+    (64-bit fixed-point sums against float32 ones in autograd's order),
+    bitwise equal across two launches, and bitwise equal to the fixed-point
+    model of the plain selection's terms (``combine_table_bwd_fixed_reference``:
+    the kernel's exact arithmetic in plain PyTorch)."""
     gen = torch.Generator().manual_seed(SEED + 1)
     result = {}
     for label, batch, block, slots in STI_SHAPES:
@@ -741,16 +824,25 @@ def check_combine_table_bwd(dev) -> dict:
             fail(f"combine_table_bwd max abs err {e} > 1e-5 x {scale} ({label})")
         if not bitwise_equal(out_k, again):
             fail(f"combine_table_bwd does not repeat bit for bit ({label})")
+        fixed = combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, slots, K)
+        if not bitwise_equal(out_k, fixed):
+            fail(f"combine_table_bwd is not bitwise its fixed-point model ({label}): "
+                 f"{int((out_k != fixed).sum())} of {out_k.numel()} differ")
         k_ms = cuda_ms(lambda: combine_table_bwd(gd2_t, gsel_t, g, slots, K))
+        g_ms = graph_ms(lambda i: combine_table_bwd(gd2_t, gsel_t, g, slots, K), 1)
         p_ms = cuda_ms(lambda: combine_table_bwd_reference(gd2_t, gsel_t, g, slots, K),
                        reps=3, warmup=1)
+        lib_ms = cuda_ms(lambda: library_combine_bwd(gd2_t, gsel_t, g, slots))
         b_ = sample_combine_bound(batch, slots)
         print(f"combine_table_bwd[{label}] B={batch} D={LENGTH} HW={H * W} G={slots} "
               f"k={K}: max abs err {e:.3e} ({e / scale:.2e} x max|plain| {scale:.3f}), "
-              f"bitwise equal across two launches; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+              f"bitwise equal across two launches and to the fixed-point model; kernel "
+              f"{k_ms:.4f} ms (device {g_ms:.4f} ms, {b_['bound_ms'] / g_ms:.4f} of the "
+              f"bound), plain {p_ms:.4f} ms, library chain {lib_ms:.4f} ms, bound "
+              f"{b_['bound_ms']:.5f} ms ({b_['bound_by']})")
         if not result:
-            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_,
+                      "library_ms": lib_ms}
     return result
 
 
@@ -776,14 +868,26 @@ def check_combine_dense(dev) -> dict:
                  f"max abs err {e}")
         k_ms = cuda_ms(lambda: combine_dense(gd2_t, cvals_t, K))
         p_ms = cuda_ms(lambda: combine_dense_reference(gd2_t, cvals_t, K), reps=5)
+        lib_ms = cuda_ms(lambda: library_combine_dense(gd2_t, cvals_t))
         b_ = bound(4 * hw * (K + LENGTH * K + LENGTH),
                    LENGTH * hw * (cand * 8 + K * cand + 2 * K))
         print(f"combine_dense[block {block}] D={LENGTH} HW={hw} k={K}: bitwise equal; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms "
-              f"({b_['bound_by']})")
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library chain {lib_ms:.4f} ms, "
+              f"bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
         if not result:
-            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_}
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_,
+                      "library_ms": lib_ms}
     return result
+
+
+def library_combine_dense(gd2_t, cvals_t):
+    """#7 as PyTorch calls: ``library_selection`` of the one window, then
+    gather of the candidate values (row frame * k + s of cvals_t) and the
+    weighted sum."""
+    slot = torch.arange(K, dtype=torch.int32, device=gd2_t.device)[:, None].expand_as(gd2_t)
+    off, w = library_selection(gd2_t[None], slot[None].contiguous(), K)
+    vals = torch.gather(cvals_t.t(), 1, off[0].permute(1, 0, 2).reshape(gd2_t.shape[1], -1))
+    return (w[0] * vals.view(-1, LENGTH, K).transpose(0, 1)).sum(-1)
 
 
 def run_idw_3d_factored(dev) -> dict:
@@ -1421,7 +1525,9 @@ def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
     summary = json.loads((tmp / f"profile_{label.replace(' ', '_')}" / "summary.json")
                          .read_text())
     total = sum(summary["kernel_ms"].values())
-    ours = {row: sum(ms for key, ms in summary["kernel_ms"].items() if f"{row}(" in key)
+    # a kernel's rows: its name, then its arguments or its template arguments
+    ours = {row: sum(ms for key, ms in summary["kernel_ms"].items()
+                     if f"{row}(" in key or f"{row}<" in key)
             for row in STI_KERNEL_ROWS}
     if total <= 0 or any(ms <= 0 for ms in ours.values()):
         fail(f"the profile shows no device time for {ours}")

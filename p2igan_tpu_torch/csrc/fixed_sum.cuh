@@ -89,6 +89,30 @@ __device__ __forceinline__ void fixed_add(u64* acc, unsigned* flag, float t, int
   }
 }
 
+// fixed_add into a shared tile, for the per-sample combine's backward (#6):
+// the scale 2^shift comes as a double formed once (ldexp(1.0, shift); the
+// product of a float32 and a power of two within double's range is exact, so
+// a term rounds to the same integer as through ldexp), and the 64-bit add is
+// made of two 32-bit shared atomics: the low word's add returns the word's
+// old value, from which its carry is known exactly and added to the high word
+// with the high half. The total is the same sum modulo 2^64 in any order. A
+// 64-bit shared atomicAdd took 1.7x as long in #6 on the H100 (PERF.md).
+__device__ __forceinline__ void fixed_add_shared(u64* acc, unsigned* flag, float t,
+                                                 double scale) {
+  if (fabsf(t) <= FLT_MAX) {
+    const u64 v = static_cast<u64>(__double2ll_rn(static_cast<double>(t) * scale));
+    if (v != 0) {
+      unsigned* word = reinterpret_cast<unsigned*>(acc);  // little-endian: low word first
+      const unsigned lo = static_cast<unsigned>(v);
+      const unsigned old = atomicAdd(word, lo);
+      const unsigned carry = old + lo < old ? 1u : 0u;
+      atomicAdd(word + 1, static_cast<unsigned>(v >> 32) + carry);
+    }
+  } else {
+    atomicOr(flag, t != t ? kFlagNaN : (t > 0.0f ? kFlagPosInf : kFlagNegInf));
+  }
+}
+
 // Adds a block's shared tile of n totals into the global totals; zeros are
 // skipped (most of a tile stays untouched).
 __device__ __forceinline__ void fixed_flush(const u64* tile, u64* acc, int n) {

@@ -288,6 +288,40 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def _factored_selection(gd2: torch.Tensor, dz2: torch.Tensor, k: int,
+                        rho: float, tau: float):
+    """The candidate selection of the reference combine, query frame by query
+    frame: gd2 (HW, k), dz2 (D, D). Yields, for z = 0..D-1, the k rounds'
+    flat frame-major candidate indices and weights ((HW,) each, round order)
+    and the denominator w_sum + 1e-12, formed as the kernels form them."""
+    from .idw_factored_kernel import first_min_index
+
+    HW = gd2.shape[0]
+    D = dz2.shape[0]
+    bigd = _sqrt_rn(torch.tensor(1e30, dtype=torch.float32, device=gd2.device))
+    col = torch.arange(D * k, device=gd2.device, dtype=torch.int32)
+    col = col[None, :].expand(HW, D * k)
+    for z in range(D):
+        cd = _sqrt_rn(gd2[:, None, :] + dz2[z][None, :, None]).reshape(HW, D * k)
+        cd = torch.where(cd < bigd, cd, bigd)
+        w_sum = torch.zeros((HW,), dtype=torch.float32, device=gd2.device)
+        idxs, ws = [], []
+        for _ in range(k):
+            d_min = cd.amin(dim=-1)
+            idx = first_min_index(cd, d_min[:, None], col, dim=-1)
+            if abs(rho - 2.0) < 1e-6:
+                invd = 1.0 / (d_min + tau)
+                w = invd * invd
+            else:
+                w = 1.0 / torch.pow(d_min + tau, rho)
+            w = torch.where(d_min < bigd, w, torch.zeros_like(w))
+            w_sum = w_sum + w
+            idxs.append(idx)
+            ws.append(w)
+            cd = torch.where(col == idx[:, None], bigd, cd)
+        yield idxs, ws, w_sum + 1e-12
+
+
 def _factored_combine_xla(gd2: torch.Tensor, cvals: torch.Tensor,
                           dz2: torch.Tensor, k: int, rho: float, tau: float
                           ) -> torch.Tensor:
@@ -298,32 +332,13 @@ def _factored_combine_xla(gd2: torch.Tensor, cvals: torch.Tensor,
     The selection depends only on geometry, so it runs once per z and serves
     every leading (window) index; the arithmetic per window is the
     reference's, round by round."""
-    from .idw_factored_kernel import first_min_index
-
     HW = gd2.shape[0]
-    D = dz2.shape[0]
-    bigd = _sqrt_rn(torch.tensor(1e30, dtype=torch.float32, device=gd2.device))
-    col = torch.arange(D * k, device=gd2.device, dtype=torch.int32)
-    col = col[None, :].expand(HW, D * k)
     lead = cvals.shape[:-2]
     rows = []
-    for z in range(D):
-        cd = _sqrt_rn(gd2[:, None, :] + dz2[z][None, :, None]).reshape(HW, D * k)
-        cd = torch.where(cd < bigd, cd, bigd)
-        w_sum = torch.zeros((HW,), dtype=torch.float32, device=gd2.device)
+    for idxs, ws, denom in _factored_selection(gd2, dz2, k, rho, tau):
         wv_sum = torch.zeros(lead + (HW,), dtype=torch.float32, device=gd2.device)
-        for _ in range(k):
-            d_min = cd.amin(dim=-1)
-            idx = first_min_index(cd, d_min[:, None], col, dim=-1)
+        for idx, w in zip(idxs, ws):
             v = torch.gather(cvals, -1, idx.long().expand(lead + (HW,))[..., None])[..., 0]
-            if abs(rho - 2.0) < 1e-6:
-                invd = 1.0 / (d_min + tau)
-                w = invd * invd
-            else:
-                w = 1.0 / torch.pow(d_min + tau, rho)
-            w = torch.where(d_min < bigd, w, torch.zeros_like(w))
-            w_sum = w_sum + w
             wv_sum = wv_sum + w * v
-            cd = torch.where(col == idx[:, None], bigd, cd)
-        rows.append(wv_sum / (w_sum + 1e-12))
+        rows.append(wv_sum / denom)
     return torch.stack(rows, dim=-2)

@@ -26,13 +26,14 @@ kernel for CUDA tensors (or raises); there is no fallback between the two.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import cuda_lib
-from .idw import _factored_combine_xla, frame_dz2_np
+from .idw import _factored_combine_xla, _factored_selection, frame_dz2_np
 
 BIG = 1e30  # taken / invalid slot distance^2 (csrc kBig)
 _BIG_I32 = int(np.iinfo(np.int32).max)
@@ -45,6 +46,7 @@ BWD_TILE_BYTES = 192 * 1024
 # #4's default tile: 2 windows at D=16, G=128 (more blocks, and several on an
 # SM), the fastest of 1-12 windows on the H100 (PERF.md)
 BWD_WINDOWS_TILE_BYTES = 32 * 1024
+STI_PIXELS_PER_BLOCK = 128  # csrc/combine_table.cu, combine_table_bwd.cu kThreads
 
 
 def first_min_index(d: torch.Tensor, d_min: torch.Tensor, idx: torch.Tensor,
@@ -97,6 +99,21 @@ def pruned_frame_table(D: int, k: int, device: str = "cpu"):
     fd2 = np.repeat(np.take_along_axis(frame_dz2_np(D), sel, axis=1), k, axis=1)
     return (torch.from_numpy(sel).to(device),
             torch.from_numpy(np.ascontiguousarray(fd2, np.float32)).to(device))
+
+
+@functools.lru_cache(maxsize=16)
+def distinct_frame_table(D: int, k: int, device: str = "cpu"):
+    """(vals (nv,) f32, vmap (D, kf) int32) on ``device``: the distinct
+    squared z-distances of the pruned frame table, ascending, and for each
+    (query z, pruned frame) the index of its distance in that list, so that
+    ``vals[vmap]`` is ``pruned_frame_table``'s fd2 without its repeat over the
+    k slots. The per-sample combines compute sqrt(gd2 + vals[j]) once per
+    (pixel, j, slot) and select through the map (nv = 13 at D=16, k=4)."""
+    sel, _ = _frame_selection(D, k)
+    fd = np.take_along_axis(frame_dz2_np(D), sel, axis=1)
+    vals, vmap = np.unique(fd, return_inverse=True)
+    return (torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(device),
+            torch.from_numpy(vmap.reshape(fd.shape).astype(np.int32)).to(device))
 
 
 # -- gauge top-k --------------------------------------------------------------
@@ -343,6 +360,33 @@ def _check_sample_args(name, gd2_t, gsel_t, B, k):
         raise ValueError(f"{name}: unsupported k={k}, HW={HW}, B={B}")
 
 
+def sample_table(name: str, D: int, k: int, device, tile_bytes: int = 0,
+                 table: bool = True):
+    """The frame tables of the per-sample combines: (sel, fd2, vals, vmap,
+    kf, nv) on ``device`` (``pruned_frame_table``'s frames and distances,
+    ``distinct_frame_table``'s distinct distances and map). Raises when the
+    kf*k candidates exceed the taken mask, or when a block's shared memory
+    (``tile_bytes`` of the backward's tile, the frame tables and, with
+    ``table``, its pixels' nv*k distance tables; the launchers' layout)
+    exceeds what a block may hold."""
+    sel, fd2 = pruned_frame_table(D, k, str(device))
+    vals, vmap = distinct_frame_table(D, k, str(device))
+    kf, nv = sel.shape[1], vals.shape[0]
+    if kf * k > MAX_CANDIDATES:
+        raise ValueError(f"{name}: kf*k={kf * k} candidates exceed "
+                         f"{MAX_CANDIDATES}")
+    smem = tile_bytes + 4 * (D * kf * (2 + k) + nv)
+    if table:
+        smem += 4 * nv * k * STI_PIXELS_PER_BLOCK
+    if smem > cuda_lib.MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{name}: a {tile_bytes}-byte tile and nv*k={nv * k} distances a pixel "
+            f"({'in' if table else 'beside'} a table at {STI_PIXELS_PER_BLOCK} pixels a "
+            f"block) need {smem} bytes of shared memory, beyond the "
+            f"{cuda_lib.MAX_SHARED_BYTES} a block may hold")
+    return sel, fd2, vals, vmap, kf, nv
+
+
 def _combine_table_cuda(gd2_t, gsel_t, tables, k, rho, tau):
     name = "combine_table"
     cuda_lib.require_cuda(name, gd2_t, gsel_t, tables,
@@ -353,14 +397,14 @@ def _combine_table_cuda(gd2_t, gsel_t, tables, k, rho, tau):
     B, D, G = tables.shape
     _check_sample_args(name, gd2_t, gsel_t, B, k)
     HW = gd2_t.shape[2]
-    sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
+    sel, _, vals, vmap, kf, nv = sample_table(name, D, k, gd2_t.device)
     out = torch.empty((B, D, HW), device=gd2_t.device, dtype=torch.float32)
     with torch.cuda.device(gd2_t.device):
         rc = cuda_lib.library().p2i_combine_table(
             gd2_t.data_ptr(), gsel_t.data_ptr(), tables.data_ptr(),
-            sel.data_ptr(), fd2.data_ptr(), out.data_ptr(), B, D, G, HW, k, kf,
-            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6),
-            cuda_lib.stream_of(gd2_t))
+            sel.data_ptr(), vals.data_ptr(), vmap.data_ptr(), out.data_ptr(),
+            B, D, G, HW, k, kf, nv, float(rho), float(tau),
+            int(abs(rho - 2.0) < 1e-6), cuda_lib.stream_of(gd2_t))
     cuda_lib.check(rc, name)
     combine_table.launches += 1
     return out
@@ -418,12 +462,83 @@ def combine_table_bwd_reference(gd2_t, gsel_t, g, G: int, k: int,
     return d_tables
 
 
+def combine_table_terms_reference(gd2_t, gsel_t, D: int, G: int, k: int,
+                                  rho: float = 2.0, tau: float = 0.05):
+    """The plain selection of the per-sample combine as scatter terms: for
+    every (sample, z, round, pixel) the target ``frame * G + slot`` in the
+    sample's (D, G) table (int64) and the normalized weight w / (w_sum +
+    1e-12) (float32), both (B, D, k, HW), over ALL D frames (no pruning)."""
+    dz2 = torch.from_numpy(frame_dz2_np(D)).to(gd2_t.device)
+    offs, wnorms = [], []
+    for b in range(gd2_t.shape[0]):
+        gsel = gsel_t[b].long()                                   # (k, HW)
+        pix = torch.arange(gsel.shape[1], device=gsel.device)
+        o_b, w_b = [], []
+        for idxs, ws, denom in _factored_selection(gd2_t[b].t(), dz2, k, rho, tau):
+            idx = torch.stack(idxs).long()                        # (k, HW)
+            o_b.append((idx // k) * G + gsel[idx % k, pix])
+            w_b.append(torch.stack(ws) / denom)
+        offs.append(torch.stack(o_b))
+        wnorms.append(torch.stack(w_b))
+    return torch.stack(offs), torch.stack(wnorms)
+
+
+def fixed_point_sum_reference(terms: torch.Tensor, idx: torch.Tensor,
+                              n_out: int, row_max: torch.Tensor,
+                              count: int) -> torch.Tensor:
+    """The order-free sum of ``csrc/fixed_sum.cuh`` in plain PyTorch, row by
+    row: terms (R, n) float32 into (R, n_out) targets ``idx`` (R, n). Each
+    finite term is scaled by 2^s (s = 62 - L - e; L the bit length of
+    ``count``, the most terms a target takes; row_max < 2^e, frexp), rounded
+    half to even to an int64 and summed as integers; each total goes back to
+    float32 with one rounding and the exact power-of-two scaling. A NaN or
+    infinite term flags its target, which then takes what a float sum gives.
+    Bitwise what the kernels compute."""
+    R = terms.shape[0]
+    dev = terms.device
+    L = int(count).bit_length()
+    e = torch.frexp(row_max.to(torch.float32)).exponent.tolist()
+    up = torch.tensor([math.ldexp(1.0, 62 - L - x) for x in e], dtype=torch.float64,
+                      device=dev)[:, None]
+    down = torch.tensor([math.ldexp(1.0, x + L - 62) for x in e], dtype=torch.float64,
+                        device=dev)[:, None]
+    finite = torch.isfinite(terms)
+    fixed = torch.round(torch.where(finite, terms, 0.0).double() * up).long()
+    acc = torch.zeros((R, n_out), dtype=torch.int64, device=dev).scatter_add_(1, idx, fixed)
+    flag = lambda m: torch.zeros((R, n_out), dtype=torch.int64, device=dev).scatter_add_(  # noqa: E731
+        1, idx, m.long()) > 0
+    nan = flag(torch.isnan(terms))
+    pos, neg = flag(terms == math.inf), flag(terms == -math.inf)
+    out = (acc.float().double() * down).float()
+    out = torch.where(pos, math.inf, torch.where(neg, -math.inf, out))
+    return torch.where(nan | (pos & neg), math.nan, out)
+
+
+def combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, G: int, k: int,
+                                      rho: float = 2.0, tau: float = 0.05):
+    """Plain version of :func:`combine_table_bwd`'s exact arithmetic: the
+    plain selection's terms w_norm * g (float32, rounded once) summed per
+    sample by :func:`fixed_point_sum_reference` at the kernel's scale (the
+    sample's largest finite |g|, D*HW terms a target at most). The kernel
+    equals it bit for bit; :func:`combine_table_bwd_reference` (float32 sums
+    in autograd's order) only to a tolerance."""
+    B, D, HW = g.shape
+    off, wnorm = combine_table_terms_reference(gd2_t, gsel_t, D, G, k, rho, tau)
+    terms = (wnorm * g[:, :, None, :]).reshape(B, -1)
+    absg = torch.where(torch.isfinite(g), g.abs(), 0.0)
+    out = fixed_point_sum_reference(terms, off.reshape(B, -1), D * G,
+                                    absg.reshape(B, -1).amax(dim=1), D * HW)
+    return out.view(B, D, G)
+
+
 def combine_table_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
                       g: torch.Tensor, G: int, k: int, rho: float = 2.0,
-                      tau: float = 0.05) -> torch.Tensor:
+                      tau: float = 0.05, iters: Optional[int] = None) -> torch.Tensor:
     """d_tables (B, D, G) of :func:`combine_table` from its output cotangent
     g (B, D, HW); the selection is recomputed per sample, not saved. The sums
-    are order-free (64-bit fixed point): the result repeats bit for bit."""
+    are order-free (64-bit fixed point): the result repeats bit for bit and
+    does not depend on ``iters``, the strips of STI_PIXELS_PER_BLOCK pixels a
+    block walks (default: :func:`bwd_strips`)."""
     if gd2_t.device.type == "cpu":
         return combine_table_bwd_reference(gd2_t, gsel_t, g, G, k, rho, tau)
     name = "combine_table_bwd"
@@ -437,27 +552,38 @@ def combine_table_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
     if HW != gd2_t.shape[2] or G < 1:
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} does not fit "
                          f"HW={gd2_t.shape[2]}, G={G}")
-    sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
-    if 8 * D * G > BWD_TILE_BYTES:
-        raise ValueError(f"{name}: a (D={D}, G={G}) tile exceeds "
-                         f"{BWD_TILE_BYTES} bytes of shared memory")
-    # strips of BWD_PIXELS_PER_BLOCK pixels a block walks: one at a (D, G) tile
-    # of 32 KB (G = 256), more for a larger tile, zeroed and flushed once a block
-    iters = max(1, min(8, (D * G) // 4096))
+    # the kernel takes its pixels' distance tables only where they cost no
+    # block an SM; without them it must fit
+    sel, fd2, vals, vmap, kf, nv = sample_table(name, D, k, gd2_t.device, 8 * D * G,
+                                                table=False)
+    if iters is None:
+        iters = bwd_strips(D, G)
+    if iters < 1:
+        raise ValueError(f"{name}: iters={iters} strips a block")
     scratch = cuda_lib.fixed_scratch(B * D * G, B, g.device)
     out = torch.empty((B, D, G), device=g.device, dtype=torch.float32)
     with torch.cuda.device(g.device):
         rc = cuda_lib.library().p2i_combine_table_bwd(
             gd2_t.data_ptr(), gsel_t.data_ptr(), g.data_ptr(), sel.data_ptr(),
-            fd2.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, D, G, HW, k, kf,
-            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), iters,
-            cuda_lib.stream_of(g))
+            fd2.data_ptr(), vals.data_ptr(), vmap.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(),
+            B, D, G, HW, k, kf, nv, float(rho), float(tau),
+            int(abs(rho - 2.0) < 1e-6), iters, cuda_lib.stream_of(g))
     cuda_lib.check(rc, name)
     combine_table_bwd.launches += 1
     return out
 
 
 combine_table_bwd.launches = 0
+
+
+def bwd_strips(D: int, G: int) -> int:
+    """Strips of STI_PIXELS_PER_BLOCK pixels a block of :func:`combine_table_bwd`
+    walks, zeroing and flushing its (D, G) tile once: one at a 32 KB tile (D=16,
+    G=256), four at 144 KB (G=1152), the fastest of 1, 2 and 4 at each of
+    chip_smoke's sti shapes on the H100 (``scripts/time_sti_combine.py
+    --iters``, PERF.md)."""
+    return max(1, min(8, (D * G) // 4096))
 
 
 # -- dense-field combine ------------------------------------------------------

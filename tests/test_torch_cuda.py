@@ -229,8 +229,21 @@ def test_batched_gauge_topk_equals_single_masks_and_cpu(dev, H, W, bs, G, k):
     assert torch.equal(gd2.view(torch.int32), rd2.view(torch.int32))
 
 
-@pytest.mark.parametrize("D,G,k", [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (1, 128, 4),
-                                   (16, 128, 3)])
+# (D, G, k) of the per-sample combine cases (#5, #6); G=1152 takes block-1
+# masks (every pixel a gauge, 960 of them), the others block 4
+STI_FWD_CASES = [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (1, 128, 4), (16, 128, 3)]
+STI_BWD_CASES = [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (16, 128, 3)]
+
+
+def _sti_selection(rng, G, k, d):
+    """(gd2_t, gsel_t) (4, k, 960) on device ``d`` of 4 masks of 40 x 24: jittered
+    grids (block 1 at G=1152, else 4), a 2-gauge and an empty mask."""
+    masks = torch.from_numpy(_sti_masks(rng, 4, 40, 24, 1 if G == 1152 else 4)).to(d)
+    gd2, gsel, _ = factored_prepare_full(masks, G, k=k)
+    return gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("D,G,k", STI_FWD_CASES)
 def test_combine_table_kernel_bitwise(dev, D, G, k):
     """Kernel #5 against its plain version (all D frames, no pruning) and
     against the CPU path: bitwise, the same selection and per-round sums."""
@@ -254,7 +267,7 @@ def test_combine_table_kernel_bitwise(dev, D, G, k):
     assert float(got[-1].abs().max()) == 0.0  # the empty mask
 
 
-@pytest.mark.parametrize("D,G,k", [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (16, 128, 3)])
+@pytest.mark.parametrize("D,G,k", STI_BWD_CASES)
 def test_combine_table_bwd_kernel(dev, D, G, k):
     """Kernel #6 against its plain version (autograd of the unpruned plain
     combine): max abs error <= 1e-5 x max|plain| (64-bit fixed-point sums
@@ -281,6 +294,80 @@ def test_combine_table_bwd_kernel(dev, D, G, k):
     assert float((tables.grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
     with pytest.raises(ValueError, match="shared memory"):
         K.combine_table_bwd(gd2_t, gsel_t, g, 100000, k)
+
+
+def _fixed_scatter_of_terms(gd2_t, gsel_t, g, G, k):
+    """d_tables as the fixed-point sum model of ``tests/test_torch_fixed_sum.py``
+    (``fixed_scatter``, one sample a row) gives it for the plain selection's
+    terms w_norm * g."""
+    from test_torch_fixed_sum import fixed_scatter
+
+    B, D, HW = g.shape
+    off, wnorm = K.combine_table_terms_reference(gd2_t, gsel_t, D, G, k)
+    gb = g[:, :, None, :].expand(B, D, k, HW)
+    rows = [fixed_scatter(wnorm[b].cpu().numpy().ravel(), gb[b].cpu().numpy().ravel(),
+                          off[b].cpu().numpy().ravel(), D * G, D * HW) for b in range(B)]
+    return torch.from_numpy(np.stack(rows)).view(B, D, G)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("D,G,k", STI_BWD_CASES)
+def test_combine_table_bwd_is_the_fixed_point_sum_of_the_plain_terms(dev, D, G, k):
+    """Kernel #6 bitwise equal to the fixed-point sum (``fixed_scatter``) of the
+    plain selection's terms, and to the same model in PyTorch on the card."""
+    rng = np.random.default_rng(11)
+    gd2_t, gsel_t = _sti_selection(rng, G, k, dev)
+    g = torch.from_numpy(rng.normal(size=(4, D, 960)).astype(np.float32)).to(dev)
+    got = K.combine_table_bwd(gd2_t, gsel_t, g, G, k)
+    assert _same_bits(got, _fixed_scatter_of_terms(gd2_t, gsel_t, g, G, k))
+    assert _same_bits(got, K.combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, G, k))
+
+
+@pytest.mark.parametrize("iters", [1, 3])
+def test_combine_table_bwd_one_gauge(dev, iters):
+    """A one-gauge mask: every pixel's k rounds pick frames of slot 0, so the 32
+    lanes of a warp mostly add into one tile entry (the warp-combined adds).
+    Bitwise the fixed-point model at 1 and 3 strips a block, within 1e-5 x
+    max|plain| of the plain version; the last strip is ragged (HW = 4000)."""
+    m = np.zeros((2, 50, 80), np.float32)
+    m[0, 20, 30] = m[1, 0, 79] = 1.0
+    gd2, gsel, _ = factored_prepare_full(torch.from_numpy(m).to(dev), 128, k=4)
+    gd2_t, gsel_t = gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous()
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(2, 16, 4000)).astype(np.float32)).to(dev)
+    got = K.combine_table_bwd(gd2_t, gsel_t, g, 128, 4, iters=iters)
+    assert _same_bits(got, K.combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, 128, 4))
+    want = K.combine_table_bwd_reference(gd2_t, gsel_t, g, 128, 4)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert float(got[:, :, 1:].abs().max()) == 0.0   # only slot 0 holds a gauge
+
+
+def test_combine_table_bwd_non_finite_cotangent(dev):
+    """A NaN and an infinity of each sign in the cotangent reach exactly the
+    tile entries their pixels' selections touch (NaN wins, +inf and -inf
+    together give NaN), bitwise the fixed-point model (``fixed_scatter``);
+    every other entry stays finite. Block-4 masks: every round is a gauge."""
+    from p2igan_tpu_torch.data.masks import create_mask_np
+
+    rng = np.random.default_rng(13)
+    masks = np.stack([create_mask_np((1, 40, 24, 1), rng, "sti", block_sizes=[4])[0, :, :, 0]
+                      for _ in range(2)])
+    gd2, gsel, _ = factored_prepare_full(torch.from_numpy(masks).to(dev), 128, k=4)
+    gd2_t, gsel_t = gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous()
+    g = torch.from_numpy(rng.normal(size=(2, 16, 960)).astype(np.float32))
+    g[0, 3, 100], g[0, 9, 500], g[1, 0, 7], g[1, 15, 959] = (
+        float("nan"), float("inf"), float("-inf"), float("inf"))
+    g = g.to(dev)
+    got = K.combine_table_bwd(gd2_t, gsel_t, g, 128, 4)
+    assert _same_bits(got, _fixed_scatter_of_terms(gd2_t, gsel_t, g, 128, 4))
+    off, _ = K.combine_table_terms_reference(gd2_t, gsel_t, 16, 128, 4)
+    touched = torch.zeros(2, 16 * 128, dtype=torch.bool)
+    for b, z, p in ((0, 3, 100), (0, 9, 500), (1, 0, 7), (1, 15, 959)):
+        touched[b, off[b, z, :, p].cpu()] = True
+    assert torch.equal(~torch.isfinite(got.cpu().view(2, -1)), touched)
 
 
 @pytest.mark.parametrize("kind", ["79", "grid", "2", "empty"])

@@ -172,3 +172,30 @@ def test_fixed_sum_scaled_by_the_largest_term_keeps_tiny_weights():
     got = fixed_scatter(w, g, idx, 7, 2000, by_terms=True)
     assert np.all(np.abs(got - want) <= 0.5 * _ulp32(want) + 1e-6 * np.abs(want).max())
     assert not fixed_scatter(w, g, idx, 7, 2000).any()
+
+
+def split_word_add(words, v):
+    """fixed_add_shared's add of the int64 v into a total kept as two 32-bit
+    words (low, high): the low add's carry comes from the word's old value."""
+    u = v % 2 ** 64
+    lo, hi = u % 2 ** 32, u >> 32
+    old = words[0]
+    words[0] = (old + lo) % 2 ** 32
+    carry = 1 if words[0] < old else 0
+    words[1] = (words[1] + hi + carry) % 2 ** 32
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_word_adds_are_the_64_bit_sum_in_any_order(seed):
+    """#6 adds a term to its shared total as two 32-bit atomics with an exact
+    carry: in any order of the adds, signed terms included, the two words end
+    as the 64-bit total modulo 2^64 that one 64-bit atomic a term gives."""
+    rng = np.random.default_rng(seed)
+    vals = [int(v) for v in rng.integers(-2 ** 62, 2 ** 62, 300)]
+    vals += [2 ** 32 - 1, 1, -1, -(2 ** 32), 2 ** 63 - 1, -(2 ** 63)]
+    want = sum(vals) % 2 ** 64
+    for _ in range(3):
+        words = [0, 0]
+        for i in rng.permutation(len(vals)):
+            split_word_add(words, vals[i])
+        assert words[0] + (words[1] << 32) == want
