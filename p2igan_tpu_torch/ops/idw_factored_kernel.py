@@ -369,12 +369,9 @@ def sample_table(name: str, D: int, k: int, device, tile_bytes: int = 0,
     (``tile_bytes`` of the backward's tile, the frame tables and, with
     ``table``, its pixels' nv*k distance tables; the launchers' layout)
     exceeds what a block may hold."""
-    sel, fd2 = pruned_frame_table(D, k, str(device))
+    sel, fd2, kf = _frame_table(name, D, k, device)
     vals, vmap = distinct_frame_table(D, k, str(device))
-    kf, nv = sel.shape[1], vals.shape[0]
-    if kf * k > MAX_CANDIDATES:
-        raise ValueError(f"{name}: kf*k={kf * k} candidates exceed "
-                         f"{MAX_CANDIDATES}")
+    nv = vals.shape[0]
     smem = tile_bytes + 4 * (D * kf * (2 + k) + nv)
     if table:
         smem += 4 * nv * k * STI_PIXELS_PER_BLOCK
@@ -533,12 +530,10 @@ def combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, G: int, k: int,
 
 def combine_table_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
                       g: torch.Tensor, G: int, k: int, rho: float = 2.0,
-                      tau: float = 0.05, iters: Optional[int] = None) -> torch.Tensor:
+                      tau: float = 0.05) -> torch.Tensor:
     """d_tables (B, D, G) of :func:`combine_table` from its output cotangent
     g (B, D, HW); the selection is recomputed per sample, not saved. The sums
-    are order-free (64-bit fixed point): the result repeats bit for bit and
-    does not depend on ``iters``, the strips of STI_PIXELS_PER_BLOCK pixels a
-    block walks (default: :func:`bwd_strips`)."""
+    are order-free (64-bit fixed point): the result repeats bit for bit."""
     if gd2_t.device.type == "cpu":
         return combine_table_bwd_reference(gd2_t, gsel_t, g, G, k, rho, tau)
     name = "combine_table_bwd"
@@ -556,10 +551,7 @@ def combine_table_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
     # block an SM; without them it must fit
     sel, fd2, vals, vmap, kf, nv = sample_table(name, D, k, gd2_t.device, 8 * D * G,
                                                 table=False)
-    if iters is None:
-        iters = bwd_strips(D, G)
-    if iters < 1:
-        raise ValueError(f"{name}: iters={iters} strips a block")
+    iters = bwd_strips(D, G)
     scratch = cuda_lib.fixed_scratch(B * D * G, B, g.device)
     out = torch.empty((B, D, G), device=g.device, dtype=torch.float32)
     with torch.cuda.device(g.device):

@@ -326,21 +326,22 @@ def test_combine_table_bwd_is_the_fixed_point_sum_of_the_plain_terms(dev, D, G, 
     assert _same_bits(got, K.combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, G, k))
 
 
-@pytest.mark.parametrize("iters", [1, 3])
-def test_combine_table_bwd_one_gauge(dev, iters):
+@pytest.mark.parametrize("G", [128, 1152])
+def test_combine_table_bwd_one_gauge(dev, G):
     """A one-gauge mask: every pixel's k rounds pick frames of slot 0, so the 32
-    lanes of a warp mostly add into one tile entry (the warp-combined adds).
-    Bitwise the fixed-point model at 1 and 3 strips a block, within 1e-5 x
-    max|plain| of the plain version; the last strip is ragged (HW = 4000)."""
+    lanes of a warp add into one tile entry at once (the same-address
+    atomics). Bitwise the fixed-point model, within 1e-5 x max|plain| of the
+    plain version, at one strip a block (G=128: direct distances) and at four
+    (G=1152: the distance tables); the last strip is ragged (HW = 4000)."""
     m = np.zeros((2, 50, 80), np.float32)
     m[0, 20, 30] = m[1, 0, 79] = 1.0
-    gd2, gsel, _ = factored_prepare_full(torch.from_numpy(m).to(dev), 128, k=4)
+    gd2, gsel, _ = factored_prepare_full(torch.from_numpy(m).to(dev), G, k=4)
     gd2_t, gsel_t = gd2.transpose(1, 2).contiguous(), gsel.transpose(1, 2).contiguous()
     g = torch.from_numpy(np.random.default_rng(12).normal(
         size=(2, 16, 4000)).astype(np.float32)).to(dev)
-    got = K.combine_table_bwd(gd2_t, gsel_t, g, 128, 4, iters=iters)
-    assert _same_bits(got, K.combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, 128, 4))
-    want = K.combine_table_bwd_reference(gd2_t, gsel_t, g, 128, 4)
+    got = K.combine_table_bwd(gd2_t, gsel_t, g, G, 4)
+    assert _same_bits(got, K.combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, G, 4))
+    want = K.combine_table_bwd_reference(gd2_t, gsel_t, g, G, 4)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert float(got[:, :, 1:].abs().max()) == 0.0   # only slot 0 holds a gauge
 
