@@ -502,8 +502,12 @@ def fixed_point_sum_reference(terms: torch.Tensor, idx: torch.Tensor,
     finite = torch.isfinite(terms)
     fixed = torch.round(torch.where(finite, terms, 0.0).double() * up).long()
     acc = torch.zeros((R, n_out), dtype=torch.int64, device=dev).scatter_add_(1, idx, fixed)
-    flag = lambda m: torch.zeros((R, n_out), dtype=torch.int64, device=dev).scatter_add_(  # noqa: E731
-        1, idx, m.long()) > 0
+
+    def flag(hit):
+        """Targets that take at least one term of ``hit``."""
+        return torch.zeros((R, n_out), dtype=torch.int64, device=dev).scatter_add_(
+            1, idx, hit.long()) > 0
+
     nan = flag(torch.isnan(terms))
     pos, neg = flag(terms == math.inf), flag(terms == -math.inf)
     out = (acc.float().double() * down).float()
