@@ -11,15 +11,17 @@
      128x128, T=16, window batch 8, G=128 gauge slots, k=4):
      gauge_topk (gsel equal, gd2 bitwise, on a random 79-gauge mask and a
      tie-heavy regular grid), combine_table_multi (max abs error <= 1e-5 and
-     the top gauge slot of every (z, pixel) identical), maxpool2_duplicate
+     the top gauge slot of every (z, pixel) identical; a call and the device
+     time at N=8 and N=12), maxpool2_duplicate
      (bitwise at the three pyramid shapes of serving and of training and in
      its 8-byte form; a call and the device time against the
      ``max_pool2d`` -> ``repeat_interleave`` chain, its plain version);
    - at the shapes of the GAN training step (p2igan_gan_baseline_gauge.json:
      batch 12): combine_table_multi_bwd (N=12, D=16, HW=16384, G=128, k=4, on
      both masks; max abs error <= 1e-5 x max|plain|, since it sums in 64-bit
-     fixed point and the plain version in float32; bitwise equal across two
-     launches and at 2, 12, 6, 4 and 1 windows a block) and decode_normalize_mask
+     fixed point and the plain version in float32; bitwise equal to its
+     fixed-point model, across two launches and at tile budgets of one window
+     a round and of all; a call and the device time) and decode_normalize_mask
      ((12, 16, 128, 128, 1) uint8 with a (12, 1, 128, 128, 1) mask; bitwise
      against the numpy decode).
 3. Serves two 64-frame 128x128 fake events through ``scripts/infer_torch.py``
@@ -207,7 +209,8 @@ from p2igan_tpu_torch.ops.idw import (extract_points, factored_prepare,
 from p2igan_tpu_torch.ops.idw_factored_kernel import (
     combine_dense, combine_dense_reference, combine_table, combine_table_bwd,
     combine_table_bwd_fixed_reference, combine_table_bwd_reference, combine_table_multi,
-    combine_table_multi_bwd, combine_table_multi_bwd_reference,
+    combine_table_multi_bwd, combine_table_multi_bwd_fixed_reference,
+    combine_table_multi_bwd_reference,
     combine_table_multi_reference, combine_table_reference, distinct_frame_table,
     gauge_topk, gauge_topk_reference, pruned_frame_table)
 from p2igan_tpu_torch.ops.idw_kernel import (
@@ -445,18 +448,40 @@ def check_combine(masks, dev) -> dict:
         k_ms = cuda_ms(lambda: combine_table_multi(gd2_t, gsel_t, tables, K))
         p_ms = cuda_ms(lambda: combine_table_multi_reference(gd2_t, gsel_t, tables, K),
                        reps=5)
+        devs = {}
+        for n in (WINDOW_BATCH, TRAIN_BATCH):
+            tabs = torch.randn((n, LENGTH, G), generator=gen).to(dev)
+            devs[n] = combine_device_ms(
+                lambda g_, s_, t_: combine_table_multi(g_, s_, t_, K), gd2_t, gsel_t, tabs,
+                4 * n * LENGTH * H * W)
+        b_ = combine_bound(WINDOW_BATCH)
         print(f"combine_table_multi[{name}] N={WINDOW_BATCH} D={LENGTH} "
               f"HW={H * W} k={K}: max abs err {e:.3e}, bitwise "
               f"{bitwise_equal(out_k, out_p)}, top slots equal; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"kernel {k_ms:.4f} ms (device " + ", ".join(
+                  f"N={n} {d_:.4f} ms, {combine_bound(n)['bound_ms'] / d_:.4f} of the bound"
+                  for n, d_ in devs.items()) + f"), plain {p_ms:.4f} ms")
         if ms is None:
-            ms, plain_ms = k_ms, p_ms
+            ms, plain_ms, dev_ms = k_ms, p_ms, devs[WINDOW_BATCH]
             lib_ms = cuda_ms(lambda: library_combine(gd2_t[None], gsel_t[None], tables,
                                                      shared=True))
             print(f"combine_table_multi library chain (distances -> topk -> gather -> "
                   f"weighted sum) on {name}: {lib_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **combine_bound(WINDOW_BATCH), "library_ms": lib_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            **b_, "bound_share": b_["bound_ms"] / dev_ms, "library_ms": lib_ms}
+
+
+def combine_device_ms(fn, gd2_t, gsel_t, data, out_bytes: int) -> float:
+    """Device time of ``fn(gd2_t, gsel_t, data)`` (#2 or #4) by ``graph_ms``,
+    over as many copies of the three inputs as make each come back after
+    ``ROTATE_BYTES`` of traffic (the inputs read, ``out_bytes`` written)."""
+    per_call = out_bytes + 4 * (data.numel() + gd2_t.numel() + gsel_t.numel())
+    n = -(-ROTATE_BYTES // per_call)
+    ins = [(gd2_t, gsel_t, data)] + [(gd2_t.clone(), gsel_t.clone(), data.clone())
+                                     for _ in range(n - 1)]
+    ms = graph_ms(lambda i: fn(*ins[i]), n)
+    del ins
+    return ms
 
 
 def combine_bound(n: int) -> dict:
@@ -562,9 +587,11 @@ def check_pool_dup(dev) -> dict:
 def check_combine_bwd(masks) -> dict:
     """Kernel #4 at the training shapes: N=12 windows, D=16, HW=16384: within
     1e-5 x max|plain| of its plain version (64-bit fixed-point sums against
-    float32 ones in autograd's order), and bitwise equal across two launches
-    and with 12, 6, 4 and 1 windows a block (n_tile; 2 by default), 12 timed
-    beside 2."""
+    float32 ones in autograd's order), bitwise equal to its fixed-point model
+    (``combine_table_multi_bwd_fixed_reference``: the kernel's exact
+    arithmetic in plain PyTorch), across two launches and at the tile budgets
+    of one window a round and of all 12 at the widest row (timed beside the
+    default); a call and the device time."""
     gen = torch.Generator().manual_seed(SEED)
     err, ms, plain_ms = 0.0, None, None
     for name, mask in masks.items():
@@ -578,28 +605,38 @@ def check_combine_bwd(masks) -> dict:
         if not (scale > 0 and e <= 1e-5 * scale):
             fail(f"combine_table_multi_bwd max abs err {e} > 1e-5 x {scale} on {name}")
         err = max(err, e)
-        for n_tile in (None, 12, 6, 4, 1):
-            again = combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, n_tile=n_tile)
+        fixed = combine_table_multi_bwd_fixed_reference(gd2_t, gsel_t, g, G, K)
+        if not bitwise_equal(out_k, fixed):
+            fail(f"combine_table_multi_bwd is not bitwise its fixed-point model on {name}: "
+                 f"{int((out_k != fixed).sum())} of {out_k.numel()} differ")
+        widest = 8 * idw_factored_kernel.bwd_widest_row(LENGTH, G, K)
+        for tile_bytes in (None, 0, widest * TRAIN_BATCH):
+            again = combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, tile_bytes=tile_bytes)
             if not bitwise_equal(again, out_k):
                 fail(f"combine_table_multi_bwd on {name} does not repeat bit for bit "
-                     f"(n_tile {n_tile})")
+                     f"(tile budget {tile_bytes})")
         k_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K))
-        wide_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, n_tile=12))
+        one_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, tile_bytes=0))
+        d_ms = combine_device_ms(lambda g_, s_, c_: combine_table_multi_bwd(g_, s_, c_, G, K),
+                                 gd2_t, gsel_t, g, 4 * TRAIN_BATCH * LENGTH * G)
         p_ms = cuda_ms(lambda: combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G, K),
                        reps=5)
+        b_ = combine_bound(TRAIN_BATCH)
         print(f"combine_table_multi_bwd[{name}] N={TRAIN_BATCH} D={LENGTH} "
               f"HW={H * W} G={G} k={K}: max abs err {e:.3e} "
-              f"({e / scale:.2e} x max|plain| {scale:.3f}); bitwise equal across two "
-              f"launches and at n_tile 2 (default), 12, 6, 4, 1; kernel {k_ms:.4f} ms "
-              f"(n_tile 12: {wide_ms:.4f} ms), plain {p_ms:.4f} ms")
+              f"({e / scale:.2e} x max|plain| {scale:.3f}); bitwise equal to the "
+              f"fixed-point model, across two launches and at tile budgets of one window "
+              f"a round and of all; kernel {k_ms:.4f} ms (one window a round: "
+              f"{one_ms:.4f} ms; device {d_ms:.4f} ms, {b_['bound_ms'] / d_ms:.4f} of the "
+              f"bound), plain {p_ms:.4f} ms")
         if ms is None:
-            ms, plain_ms = k_ms, p_ms
+            ms, plain_ms, dev_ms = k_ms, p_ms, d_ms
             lib_ms = cuda_ms(lambda: library_combine_bwd(gd2_t[None], gsel_t[None], g, G,
                                                          shared=True))
             print(f"combine_table_multi_bwd library chain (selection -> index_add_) on "
                   f"{name}: {lib_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **combine_bound(TRAIN_BATCH), "library_ms": lib_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            **b_, "bound_share": b_["bound_ms"] / dev_ms, "library_ms": lib_ms}
 
 
 def check_decode(dev) -> dict:
@@ -1268,6 +1305,7 @@ def train(tmp: Path, card: str, dev) -> dict:
                 fail(f"resume ended at step {resumed.global_step}")
             print(f"resume from latest.ckpt continued to step {resumed.global_step}; "
                   + profile_report(prof))
+            print_kernel_share(prof, "p2igan stis GAN", STIS_KERNEL_ROWS, "#2 + #4")
     return launches
 
 
@@ -1505,6 +1543,10 @@ def serve_sti(tmp: Path, card: str, dev) -> dict:
 
 STI_KERNEL_ROWS = ("gauge_topk_kernel", "combine_table_kernel", "combine_table_bwd_kernel",
                    "row_absmax_kernel", "fixed_finish_kernel")
+# the device kernels of #2 and #4 on the stis path (#1 runs once a mask, before
+# the profiled steps; #4's sums take the fixed-point kernels)
+STIS_KERNEL_ROWS = ("combine_table_multi_kernel", "combine_table_multi_bwd_kernel",
+                    "row_absmax_kernel", "fixed_finish_kernel")
 
 
 def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
@@ -1522,20 +1564,26 @@ def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
         "gauge_topk": steps + val, "combine_table": steps + val,
         "combine_table_bwd": steps, "maxpool2_duplicate": 3 * (steps + val),
         **({"decode_normalize_mask": None} if decode else {})})
-    summary = json.loads((tmp / f"profile_{label.replace(' ', '_')}" / "summary.json")
-                         .read_text())
+    print_kernel_share(tmp / f"profile_{label.replace(' ', '_')}", label, STI_KERNEL_ROWS,
+                       "#1 + #5 + #6")
+    return launches, sps
+
+
+def print_kernel_share(prof: Path, label: str, rows, what: str) -> None:
+    """The share of the kernels ``rows`` in the kernel time of a trainer's
+    profiled steps; fails if the profile shows one of them no time."""
+    summary = json.loads((prof / "summary.json").read_text())
     total = sum(summary["kernel_ms"].values())
     # a kernel's rows: its name, then its arguments or its template arguments
     ours = {row: sum(ms for key, ms in summary["kernel_ms"].items()
                      if f"{row}(" in key or f"{row}<" in key)
-            for row in STI_KERNEL_ROWS}
+            for row in rows}
     if total <= 0 or any(ms <= 0 for ms in ours.values()):
         fail(f"the profile shows no device time for {ours}")
     print(f"{label}: of {total:.2f} ms of kernel time in the {summary['steps']} profiled "
-          f"steps, #1 + #5 + #6 take {sum(ours.values()):.3f} ms = "
+          f"steps, {what} take {sum(ours.values()):.3f} ms = "
           f"{sum(ours.values()) / total:.4f}: "
           + ", ".join(f"{row} {ms:.3f}" for row, ms in ours.items()))
-    return launches, sps
 
 
 # -- the generic IDW: masks that vary per frame --------------------------------

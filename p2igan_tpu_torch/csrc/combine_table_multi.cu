@@ -13,11 +13,13 @@
 // arithmetic of the plain PyTorch version (_factored_combine_xla).
 //
 // Bound on the H100: the output write, N*D*HW*4 bytes (8 MB at N=8, D=16,
-// 128x128) plus D*HW*kf*k*k square roots for the selection. One thread per
-// (pixel, z) -- a grid of HW/128 x D blocks fills the 132 SMs -- runs the
-// selection once and applies it to all N windows, so the selection cost does
-// not grow with N. The tables (N*D*G*4 bytes, 64 KB at N=8) are read through the
-// read-only cache; they are small enough to stay resident in L1/L2 for any N.
+// 128x128), and the selection. One thread per (pixel, z) -- a grid of HW/128 x
+// D blocks fills the 132 SMs -- runs the selection once and applies it to all
+// N windows, so the selection cost does not grow with N. With k=4, kf=5 its
+// kf*k candidate distances are computed once into registers and the rounds run
+// there (select_candidates<4, 5>); other shapes take the run-time rounds. The
+// tables (N*D*G*4 bytes, 64 KB at N=8) are read through the read-only cache;
+// they are small enough to stay resident in L1/L2 for any N.
 //
 // Rounding: sqrt, division, products and sums use round-to-nearest intrinsics
 // and no FMA contraction, so the selection and the value equal the plain
@@ -31,6 +33,8 @@ namespace {
 
 using p2i::kMaxK;
 
+// K, KF: k and kf at compile time (4, 5: D=16, k=4), or 0 for run time.
+template <int K, int KF>
 __global__ void combine_table_multi_kernel(const float* __restrict__ gd2,
                                            const int* __restrict__ gsel,
                                            const float* __restrict__ tables,
@@ -57,8 +61,8 @@ __global__ void combine_table_multi_kernel(const float* __restrict__ gd2,
   p2i::load_gauges(gd2, gsel, p, HW, k, g2, gs);
   float wr[kMaxK];
   int off[kMaxK];
-  const float denom = p2i::select_candidates(g2, gs, s_fd2, s_sel, G, k, kf, rho,
-                                             tau, rho_is_2, wr, off);
+  const float denom = p2i::select_candidates<K, KF>(g2, gs, s_fd2, s_sel, G, k, kf, rho,
+                                                    tau, rho_is_2, wr, off);
 
   const size_t plane = static_cast<size_t>(D) * G;
   for (int n = 0; n < N; ++n) {
@@ -79,10 +83,16 @@ extern "C" int p2i_combine_table_multi(const float* gd2, const int* gsel,
                                        const float* fd2, float* out, int N, int D,
                                        int G, int HW, int k, int kf, float rho,
                                        float tau, int rho_is_2, void* stream) {
+  if (N < 1 || D < 1 || G < 1 || HW < 1 || k < 1 || k > kMaxK || kf < 1 ||
+      kf * k > p2i::kMaxCand) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int threads = 128;
   dim3 grid((HW + threads - 1) / threads, D);
   const size_t smem = static_cast<size_t>(kf) * k * sizeof(float) + kf * sizeof(int);
-  combine_table_multi_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = k == 4 && kf == 5 ? combine_table_multi_kernel<4, 5>
+                                  : combine_table_multi_kernel<0, 0>;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       gd2, gsel, tables, sel, fd2, out, N, D, G, HW, k, kf, rho, tau, rho_is_2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,13 +39,12 @@ BIG = 1e30  # taken / invalid slot distance^2 (csrc kBig)
 _BIG_I32 = int(np.iinfo(np.int32).max)
 MAX_K = 8          # csrc kMaxK
 MAX_CANDIDATES = 64  # csrc kMaxCand: kf * k
-BWD_PIXELS_PER_BLOCK = 128      # csrc/combine_table_multi_bwd.cu kThreads
-# the backwards' shared-memory tile of 64-bit fixed-point totals (8 bytes an
-# entry, csrc/fixed_sum.cuh), within the 227 KB a block may opt in to
-BWD_TILE_BYTES = 192 * 1024
-# #4's default tile: 2 windows at D=16, G=128 (more blocks, and several on an
-# SM), the fastest of 1-12 windows on the H100 (PERF.md)
-BWD_WINDOWS_TILE_BYTES = 32 * 1024
+BWD_THREADS = 512  # csrc/combine_table_multi_bwd.cu kThreads: (pixel, z) pairs a block
+# #4's budget for a block's tile of window totals (8 bytes an entry,
+# csrc/fixed_sum.cuh): 3 windows at the widest tile row at D=16, k=4 (129
+# slots), so two blocks share an SM; at a block's own row (a few slots) it
+# holds every window of the training shape
+BWD_WINDOWS_TILE_BYTES = 64 * 1024
 STI_PIXELS_PER_BLOCK = 128  # csrc/combine_table.cu, combine_table_bwd.cu kThreads
 
 
@@ -290,14 +289,37 @@ def combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G: int, k: int,
     return d_tables
 
 
+def combine_table_multi_bwd_fixed_reference(gd2_t, gsel_t, g, G: int, k: int,
+                                            rho: float = 2.0, tau: float = 0.05):
+    """Plain version of :func:`combine_table_multi_bwd`'s exact arithmetic:
+    the plain selection's terms (one selection, the same targets for every
+    window) w_norm * g (float32, rounded once), summed per window by
+    :func:`fixed_point_sum_reference` at the kernel's scale (the window's
+    largest finite |g|, D*HW terms a target at most). The kernel equals it
+    bit for bit; :func:`combine_table_multi_bwd_reference` (float32 sums in
+    autograd's order) only to a tolerance."""
+    off, wnorm = combine_table_terms_reference(gd2_t[None], gsel_t[None], g.shape[1], G,
+                                               k, rho, tau)
+    return _fixed_point_backward(off, wnorm, g, G)
+
+
+def bwd_widest_row(D: int, G: int, k: int) -> int:
+    """Entries of the widest (D, pitch) tile row a block of :func:`combine_table_multi_bwd`
+    may need: its pixels' k slots each (at most G), rounded up to odd, a frame."""
+    return D * (min(G, k * (BWD_THREADS // D)) | 1)
+
+
 def combine_table_multi_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
                             g: torch.Tensor, G: int, k: int, rho: float = 2.0,
-                            tau: float = 0.05, n_tile: Optional[int] = None) -> torch.Tensor:
+                            tau: float = 0.05, tile_bytes: Optional[int] = None
+                            ) -> torch.Tensor:
     """d_tables (N, D, G) of :func:`combine_table_multi` from its output
     cotangent g (N, D, HW); the selection is recomputed, not saved. The sums
     are order-free (64-bit fixed point), so the result repeats bit for bit
-    and does not depend on ``n_tile``, the windows a block takes (default: as
-    fit in BWD_WINDOWS_TILE_BYTES)."""
+    and does not depend on ``tile_bytes``, the budget of a block's tile of
+    window totals (default BWD_WINDOWS_TILE_BYTES; whole windows at the widest
+    row, at least one, no more than shared memory holds), which sets how many
+    windows a block adds before it flushes."""
     if gd2_t.device.type == "cpu":
         return combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G, k, rho, tau)
     name = "combine_table_multi_bwd"
@@ -309,21 +331,26 @@ def combine_table_multi_bwd(gd2_t: torch.Tensor, gsel_t: torch.Tensor,
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} does not fit "
                          f"HW={gd2_t.shape[1]}, G={G}")
     sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
-    # windows per block: the accumulation tile (n_tile, D, G) of 8-byte
-    # totals stays within BWD_TILE_BYTES of shared memory
-    most = BWD_TILE_BYTES // (8 * D * G)
-    if n_tile is None:
-        n_tile = max(1, min(N, most, BWD_WINDOWS_TILE_BYTES // (8 * D * G)))
-    if not 1 <= n_tile <= most:
-        raise ValueError(f"{name}: {n_tile} windows of a (D={D}, G={G}) tile "
-                         f"exceed {BWD_TILE_BYTES} bytes of shared memory")
+    if tile_bytes is None:
+        tile_bytes = BWD_WINDOWS_TILE_BYTES
+    # the launcher's layout: the tile (whole windows at the widest row, at
+    # least one, at most N), then the slot map and numbering, fd2 and sel,
+    # and the block's slot count (16 bytes of static shared memory)
+    row = 8 * bwd_widest_row(D, G, k)
+    rest = 4 * (2 * G + D * kf * (k + 1)) + 16
+    windows = min(N, tile_bytes // row, (cuda_lib.MAX_SHARED_BYTES - rest) // row)
+    if D > BWD_THREADS or tile_bytes < 0 or row + rest > cuda_lib.MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: D={D}, G={G}, k={k} need {row + rest} bytes of shared "
+                         f"memory a block for one window (at most "
+                         f"{cuda_lib.MAX_SHARED_BYTES}), D <= {BWD_THREADS} and a tile "
+                         f"budget >= 0, got {tile_bytes}")
     scratch = cuda_lib.fixed_scratch(N * D * G, N, g.device)
     out = torch.empty((N, D, G), device=g.device, dtype=torch.float32)
     with torch.cuda.device(g.device):
         rc = cuda_lib.library().p2i_combine_table_multi_bwd(
             gd2_t.data_ptr(), gsel_t.data_ptr(), g.data_ptr(), sel.data_ptr(),
             fd2.data_ptr(), scratch.data_ptr(), out.data_ptr(), N, D, G, HW, k, kf,
-            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), n_tile,
+            float(rho), float(tau), int(abs(rho - 2.0) < 1e-6), max(1, windows) * row,
             cuda_lib.stream_of(g))
     cuda_lib.check(rc, name)
     combine_table_multi_bwd.launches += 1
@@ -523,12 +550,22 @@ def combine_table_bwd_fixed_reference(gd2_t, gsel_t, g, G: int, k: int,
     sample's largest finite |g|, D*HW terms a target at most). The kernel
     equals it bit for bit; :func:`combine_table_bwd_reference` (float32 sums
     in autograd's order) only to a tolerance."""
+    off, wnorm = combine_table_terms_reference(gd2_t, gsel_t, g.shape[1], G, k, rho, tau)
+    return _fixed_point_backward(off, wnorm, g, G)
+
+
+def _fixed_point_backward(off, wnorm, g, G: int):
+    """The backwards' terms w_norm * g (float32) summed per row of g (B, D,
+    HW) by :func:`fixed_point_sum_reference`, at the kernels' scale: the row's
+    largest finite |g|, D*HW terms a target at most. off and wnorm (B or 1, D,
+    k, HW): the targets and weights of each row's selection, or of one
+    selection that every row shares."""
     B, D, HW = g.shape
-    off, wnorm = combine_table_terms_reference(gd2_t, gsel_t, D, G, k, rho, tau)
     terms = (wnorm * g[:, :, None, :]).reshape(B, -1)
+    idx = off.expand(B, *off.shape[1:]).reshape(B, -1)
     absg = torch.where(torch.isfinite(g), g.abs(), 0.0)
-    out = fixed_point_sum_reference(terms, off.reshape(B, -1), D * G,
-                                    absg.reshape(B, -1).amax(dim=1), D * HW)
+    out = fixed_point_sum_reference(terms, idx, D * G, absg.reshape(B, -1).amax(dim=1),
+                                    D * HW)
     return out.view(B, D, G)
 
 

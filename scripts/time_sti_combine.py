@@ -84,15 +84,16 @@ def entry_params(text: str, entry: str) -> list:
     return params
 
 
-def build(trees: dict) -> dict:
-    """label -> kernel -> (entry point, its parameters), every tree compiled at once."""
-    BUILD.mkdir(parents=True, exist_ok=True)
+def build(trees: dict, kernels: dict = KERNELS, out_dir: Path = BUILD) -> dict:
+    """label -> kernel -> (entry point, its parameters), every tree compiled at
+    once; ``kernels``: kernel -> (source, C entry point)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_lib._nvcc()
     jobs = {}
     for label, root in trees.items():
         csrc = root / CSRC
-        for kernel, (source, _) in KERNELS.items():
-            out = BUILD / f"{kernel}.{label}.so"
+        for kernel, (source, _) in kernels.items():
+            out = out_dir / f"{kernel}.{label}.so"
             cmd = [nvcc, *cuda_lib.NVCC_FLAGS, "-I", str(csrc), "-shared", "-o", str(out),
                    str(csrc / source)]
             jobs[label, kernel] = (csrc / source, out, subprocess.Popen(
@@ -105,7 +106,7 @@ def build(trees: dict) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas [{label} {kernel}]: {line.strip()}")
-        entry = KERNELS[kernel][1]
+        entry = kernels[kernel][1]
         params = entry_params(src.read_text(), entry)
         fn = getattr(ctypes.CDLL(str(out)), entry)
         fn.argtypes = [t for _, t in params]
@@ -171,6 +172,46 @@ def cases(dev) -> dict:
             "g": torch.from_numpy(rng.normal(size=(B, D, HW)).astype(np.float32)).to(dev),
             "timed": False}
     return out
+
+
+def time_rounds(timed: dict, rounds: int, reps: int, result: dict) -> dict:
+    """key -> label -> {"ms": [...], "graph_ms": [...]}: each call of ``timed``
+    (key -> label -> call) timed in ``rounds`` rounds that visit the labels of
+    a key forward and then backward (A B B A): the median CUDA-event time of
+    one call over ``reps`` calls, and the device time of one call in a
+    CUDA-graph replay. The SM clock and power under the rounds go into
+    ``result`` and are printed."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "200"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    times = {key: {label: {"ms": [], "graph_ms": []} for label in calls}
+             for key, calls in timed.items()}
+    try:
+        for _ in range(rounds):
+            for key, calls in timed.items():
+                order = list(calls)
+                for label in order + order[::-1]:
+                    rec = times[key][label]
+                    rec["ms"].append(chip_smoke.cuda_ms(calls[label], reps=reps))
+                    call = calls[label]
+                    copies = getattr(call, "copies", 0)  # call(i) takes input copy i
+                    rec["graph_ms"].append(chip_smoke.graph_ms(call, copies) if copies else
+                                           chip_smoke.graph_ms(lambda i: call(), 1))
+    finally:
+        smi.terminate()
+    samples = []
+    for line in smi.communicate()[0].splitlines():
+        try:
+            clock, power = (float(v) for v in line.split(","))
+        except ValueError:         # a field the card does not report
+            continue
+        samples.append((clock, power))
+    if samples:
+        result["sm_clock_mhz_median"] = statistics.median(a for a, _ in samples)
+        result["power_w_median"] = statistics.median(b for _, b in samples)
+        print(f"under the timing rounds: SM clock median {result['sm_clock_mhz_median']:.0f} "
+              f"MHz, power median {result['power_w_median']:.1f} W ({len(samples)} samples)")
+    return times
 
 
 def main() -> int:
@@ -248,31 +289,7 @@ def main() -> int:
                 failed.append(f"{label} bwd {name}: output differs")
             timed["bwd", name][label] = call
 
-    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                            "--format=csv,noheader,nounits", "-lms", "200"],
-                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    times = {key: {label: {"ms": [], "graph_ms": []} for label in calls}
-             for key, calls in timed.items()}
-    for _ in range(args.rounds):
-        for key, calls in timed.items():
-            order = list(calls)
-            for label in order + order[::-1]:
-                rec = times[key][label]
-                rec["ms"].append(chip_smoke.cuda_ms(calls[label], reps=args.reps))
-                rec["graph_ms"].append(chip_smoke.graph_ms(lambda i: calls[label](), 1))
-    smi.terminate()
-    samples = []
-    for line in smi.communicate()[0].splitlines():
-        try:
-            clock, power = (float(v) for v in line.split(","))
-        except ValueError:         # a field the card does not report
-            continue
-        samples.append((clock, power))
-    if samples:
-        result["sm_clock_mhz_median"] = statistics.median(a for a, _ in samples)
-        result["power_w_median"] = statistics.median(b for _, b in samples)
-        print(f"under the timing rounds: SM clock median {result['sm_clock_mhz_median']:.0f} "
-              f"MHz, power median {result['power_w_median']:.1f} W ({len(samples)} samples)")
+    times = time_rounds(timed, args.rounds, args.reps, result)
     result["times"] = {}
     for (kernel, name), by_label in times.items():
         case = inputs[name]

@@ -69,11 +69,29 @@ def test_card_path_equals_cpu_path_bitwise(dev, kind):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kind", ["79", "grid", "2"])
-@pytest.mark.parametrize("D,N,k", [(16, 8, 4), (4, 3, 4), (1, 1, 4), (16, 70, 3)])
+# the shared-mask combine (#2) and its backward (#4), (D, N, k): D=16, k=4
+# selects on registers (kf=5), the others at run time (kf = 4, 1, 3, 3, 1)
+MULTI_FWD_CASES = [(16, 8, 4), (4, 3, 4), (1, 1, 4), (16, 70, 3), (16, 12, 4), (4, 3, 3),
+                   (1, 2, 3)]
+MULTI_BWD_CASES = [(16, 12, 4), (4, 3, 4), (16, 40, 3), (1, 1, 4), (4, 3, 3), (1, 2, 3)]
+MULTI_KINDS = ["79", "grid", "2"]
+# mask shapes (H, W): 851 pixels fill no block of either kernel
+MULTI_FWD_SHAPE, MULTI_BWD_SHAPE, MULTI_ODD_SHAPE = (24, 40), (40, 24), (23, 37)
+
+
+def _multi_inputs(dev, kind, shape, k, seed):
+    """gd2_t, gsel_t (k, HW) of one mask on the card, and the rng after it."""
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(_mask(kind, *shape, rng)).to(dev)
+    gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
+    return gd2.t().contiguous(), gsel.t().contiguous(), rng
+
+
+@pytest.mark.parametrize("kind", MULTI_KINDS)
+@pytest.mark.parametrize("D,N,k", MULTI_FWD_CASES)
 def test_combine_table_multi_kernel(dev, kind, D, N, k):
     rng = np.random.default_rng(1)
-    mask = torch.from_numpy(_mask(kind, 24, 40, rng)).to(dev)
+    mask = torch.from_numpy(_mask(kind, *MULTI_FWD_SHAPE, rng)).to(dev)
     gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
     tables = torch.from_numpy(rng.normal(size=(N, D, 128)).astype(np.float32)).to(dev)
     args = (gd2.t().contiguous(), gsel.t().contiguous(), tables, k)
@@ -119,16 +137,17 @@ def test_pool_dup_kernel_bitwise(dev, shape, offset):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("kind", ["79", "grid", "2"])
-@pytest.mark.parametrize("D,N,k", [(16, 12, 4), (4, 3, 4), (16, 40, 3), (1, 1, 4)])
+@pytest.mark.parametrize("kind", MULTI_KINDS)
+@pytest.mark.parametrize("D,N,k", MULTI_BWD_CASES)
 def test_combine_table_multi_bwd_kernel(dev, kind, D, N, k):
     """Kernel #4 against its plain version (autograd of the unpruned plain
     combine): max abs error <= 1e-5 x max|plain|, because the kernel sums in
     64-bit fixed point and the plain version in float32 in autograd's order.
-    The fixed-point sum is order-free: a second launch, and a launch with
-    another number of windows a block (n_tile), give the same bits."""
+    The fixed-point sum is order-free: a second launch, and launches whose
+    tile budget takes one window a round at the widest row, or every window,
+    give the same bits."""
     rng = np.random.default_rng(5)
-    mask = torch.from_numpy(_mask(kind, 40, 24, rng)).to(dev)
+    mask = torch.from_numpy(_mask(kind, *MULTI_BWD_SHAPE, rng)).to(dev)
     gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
     g = torch.from_numpy(rng.normal(size=(N, D, 40 * 24)).astype(np.float32)).to(dev)
     args = (gd2.t().contiguous(), gsel.t().contiguous(), g, 128, k)
@@ -137,10 +156,41 @@ def test_combine_table_multi_bwd_kernel(dev, kind, D, N, k):
     want = K.combine_table_multi_bwd_reference(*args)
     assert K.combine_table_multi_bwd.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    most = min(N, K.BWD_TILE_BYTES // (8 * D * 128))
-    for n_tile in (None, 1, max(1, most // 2), most):
-        again = K.combine_table_multi_bwd(*args, n_tile=n_tile)
-        assert torch.equal(again.view(torch.int32), got.view(torch.int32)), n_tile
+    for tile_bytes in (None, 0, 8 * K.bwd_widest_row(D, 128, k) * N):
+        again = K.combine_table_multi_bwd(*args, tile_bytes=tile_bytes)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32)), tile_bytes
+
+
+@pytest.mark.parametrize("kind", MULTI_KINDS)
+@pytest.mark.parametrize("D,N,k", MULTI_BWD_CASES)
+@pytest.mark.parametrize("shape", [MULTI_BWD_SHAPE, MULTI_ODD_SHAPE])
+def test_combine_table_multi_bwd_kernel_is_its_fixed_model(dev, kind, D, N, k, shape):
+    """Kernel #4 bit for bit its fixed-point model
+    (``combine_table_multi_bwd_fixed_reference``: the plain selection's terms
+    summed in 64-bit fixed point), on the register rounds and the run-time
+    ones, on a mask whose pixels fill no block, and with a NaN and an
+    infinity in the cotangent (each reaches exactly the targets it touches)."""
+    gd2_t, gsel_t, rng = _multi_inputs(dev, kind, shape, k, 8)
+    hw = shape[0] * shape[1]
+    g = torch.from_numpy(rng.normal(size=(N, D, hw)).astype(np.float32)).to(dev)
+    g[0, 0, hw // 2] = float("nan")
+    g[-1, -1, hw - 1] = float("inf")
+    got = K.combine_table_multi_bwd(gd2_t, gsel_t, g, 128, k)
+    want = K.combine_table_multi_bwd_fixed_reference(gd2_t, gsel_t, g, 128, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
+@pytest.mark.parametrize("kind", MULTI_KINDS)
+@pytest.mark.parametrize("D,N,k", MULTI_FWD_CASES)
+def test_combine_table_multi_kernel_odd_shape(dev, kind, D, N, k):
+    """Kernel #2 bitwise its plain version on a mask of 851 pixels, which
+    fills no block."""
+    gd2_t, gsel_t, rng = _multi_inputs(dev, kind, MULTI_ODD_SHAPE, k, 9)
+    tables = torch.from_numpy(rng.normal(size=(N, D, 128)).astype(np.float32)).to(dev)
+    got = K.combine_table_multi(gd2_t, gsel_t, tables, k)
+    want = K.combine_table_multi_reference(gd2_t, gsel_t, tables, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("shape,mshape", [

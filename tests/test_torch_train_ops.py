@@ -85,6 +85,34 @@ def test_combine_bwd_reference_matches_jax(kind, D, N):
     np.testing.assert_allclose(tables.grad.numpy(), got, rtol=1e-5, atol=atol)
 
 
+@pytest.mark.parametrize("kind", ["13", "grid", "2"])
+@pytest.mark.parametrize("D,N", [(16, 3), (4, 2)])
+def test_combine_bwd_fixed_model_matches_plain_and_jax(kind, D, N):
+    """Kernel #4's exact arithmetic (``combine_table_multi_bwd_fixed_reference``:
+    the plain selection's terms in 64-bit fixed point, one selection for all
+    windows) within rtol 1e-5 (atol 1e-6 x max) of the plain backward and of
+    the JAX Pallas backward (interpret mode), and bit for bit the per-sample
+    model (#6's) given the same mask for every window."""
+    H, W, G, k = 16, 24, 128, 4
+    gd2_t, gsel_t = _prepared(kind, H, W, k)
+    g = np.random.default_rng(3).normal(size=(N, D, H * W)).astype(np.float32)
+    got = tkern.combine_table_multi_bwd_fixed_reference(gd2_t, gsel_t, torch.from_numpy(g),
+                                                        G, k)
+    plain = tkern.combine_table_multi_bwd_reference(gd2_t, gsel_t, torch.from_numpy(g),
+                                                    G, k).numpy()
+    assert got.shape == (N, D, G) and np.abs(plain).max() > 0.1
+    atol = 1e-6 * np.abs(plain).max()
+    np.testing.assert_allclose(got.numpy(), plain, rtol=1e-5, atol=atol)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jkern.factored_combine_table_multi_bwd_pallas(
+            jnp.asarray(gd2_t.numpy()), jnp.asarray(gsel_t.numpy()), jnp.asarray(g),
+            jnp.asarray(jidw.frame_dz2_np(D)), G=G, k=k, D=D, hw_block=128))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=atol)
+    per_sample = tkern.combine_table_bwd_fixed_reference(
+        gd2_t.expand(N, -1, -1), gsel_t.expand(N, -1, -1), torch.from_numpy(g), G, k)
+    assert torch.equal(got.view(torch.int32), per_sample.view(torch.int32))
+
+
 def test_combine_function_gives_no_grad_to_the_selection():
     gd2_t, gsel_t = _prepared("13", 8, 8)
     gd2_t.requires_grad_(True)
