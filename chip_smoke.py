@@ -39,7 +39,8 @@
    base 64, T=16, 128x128, batch 12) through ``scripts/train_torch.py`` on a
    fake train store, once with ``device_decode`` off and once on: 5 warm-up
    steps, then 10 timed steps; checks finite losses, ``latest.ckpt``, a
-   resume that continues, and that the run launched every kernel of the
+   resume that continues (its last 4 steps profiled: idle share, the share of
+   #2 + #4 in the kernel time), and that the run launched every kernel of the
    training path. Prints GAN steps/s with the card's name and power limit.
 6. p2igan on per-sample ``sti`` masks (the shipped eval and GAN configs with
    ``mask.type`` set to ``sti``; their ``block_sizes: [10]`` gives 169 gauges a
@@ -160,7 +161,8 @@
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time, null only for #9, whose chain fits in no card's memory at
-   its batch; launches on the kernel's main path), then
+   its batch; launches on the kernel's main path; for #2 and #4 also the
+   CUDA-graph device time and its share of the bound), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed check exits
    non-zero without that line.
 """

@@ -185,7 +185,9 @@ class P2IGenerator(nn.Module):
 
     def prepare_idw(self, mask_xy: torch.Tensor):
         """Gauge selection of the factored shared-mask IDW for an (H, W) mask,
-        computed once and passed to ``forward(..., idw_prepared=...)``."""
+        computed once and passed to ``forward(..., idw_prepared=...)``. gd2 and
+        gsel (HW, k) are laid out as the combine kernels take them, (k, HW)
+        row-major, so that no forward copies them again."""
         from ..ops.idw import factored_prepare_full
 
         max_gauges = InputBlock.gauge_budget(self.idw_max_points, self.length)
@@ -196,7 +198,8 @@ class P2IGenerator(nn.Module):
                 f"{max_gauges} (idw_max_points={self.idw_max_points}, "
                 f"length={self.length}); raise idw_max_points or fix the mask "
                 f"config")
-        return factored_prepare_full(mask_xy, max_gauges, k=self.idw_k)
+        gd2, gsel, gauge_pix = factored_prepare_full(mask_xy, max_gauges, k=self.idw_k)
+        return gd2.t().contiguous().t(), gsel.t().contiguous().t(), gauge_pix
 
     def forward(self, masked_frames: torch.Tensor, masks: torch.Tensor,
                 idw_prepared=None) -> torch.Tensor:

@@ -158,9 +158,10 @@ def factored_apply_gauges_batch(gd2: torch.Tensor, gsel: torch.Tensor,
                                 k: int = 4, rho: float = 2.0, tau: float = 0.05
                                 ) -> torch.Tensor:
     """IDW densification of N windows sharing one mask: gd2/gsel (HW, k) from
-    :func:`factored_prepare_full`, gauge_vals (N, D, G) values at the gauge
-    slots. The selection runs once per pixel and serves every window.
-    Returns (N, D, H, W)."""
+    :func:`factored_prepare_full` (their transposes are copied unless they are
+    contiguous already, as ``P2IGenerator.prepare_idw`` lays them out),
+    gauge_vals (N, D, G) values at the gauge slots. The selection runs once
+    per pixel and serves every window. Returns (N, D, H, W)."""
     from .idw_factored_kernel import combine_table_multi
 
     H, W = out_hw
