@@ -21,7 +21,8 @@
      both masks; max abs error <= 1e-5 x max|plain|, since it sums in 64-bit
      fixed point and the plain version in float32; bitwise equal to its
      fixed-point model, across two launches and at tile budgets of one window
-     a round and of all; a call and the device time) and decode_normalize_mask
+     and of all 12 at the widest row; a call and the device time) and
+     decode_normalize_mask
      ((12, 16, 128, 128, 1) uint8 with a (12, 1, 128, 128, 1) mask; bitwise
      against the numpy decode).
 3. Serves two 64-frame 128x128 fake events through ``scripts/infer_torch.py``
@@ -592,8 +593,8 @@ def check_combine_bwd(masks) -> dict:
     float32 ones in autograd's order), bitwise equal to its fixed-point model
     (``combine_table_multi_bwd_fixed_reference``: the kernel's exact
     arithmetic in plain PyTorch), across two launches and at the tile budgets
-    of one window a round and of all 12 at the widest row (timed beside the
-    default); a call and the device time."""
+    of one window and of all 12 at the widest row (every slot); a call and
+    the device time."""
     gen = torch.Generator().manual_seed(SEED)
     err, ms, plain_ms = 0.0, None, None
     for name, mask in masks.items():
@@ -618,7 +619,6 @@ def check_combine_bwd(masks) -> dict:
                 fail(f"combine_table_multi_bwd on {name} does not repeat bit for bit "
                      f"(tile budget {tile_bytes})")
         k_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K))
-        one_ms = cuda_ms(lambda: combine_table_multi_bwd(gd2_t, gsel_t, g, G, K, tile_bytes=0))
         d_ms = combine_device_ms(lambda g_, s_, c_: combine_table_multi_bwd(g_, s_, c_, G, K),
                                  gd2_t, gsel_t, g, 4 * TRAIN_BATCH * LENGTH * G)
         p_ms = cuda_ms(lambda: combine_table_multi_bwd_reference(gd2_t, gsel_t, g, G, K),
@@ -628,9 +628,8 @@ def check_combine_bwd(masks) -> dict:
               f"HW={H * W} G={G} k={K}: max abs err {e:.3e} "
               f"({e / scale:.2e} x max|plain| {scale:.3f}); bitwise equal to the "
               f"fixed-point model, across two launches and at tile budgets of one window "
-              f"a round and of all; kernel {k_ms:.4f} ms (one window a round: "
-              f"{one_ms:.4f} ms; device {d_ms:.4f} ms, {b_['bound_ms'] / d_ms:.4f} of the "
-              f"bound), plain {p_ms:.4f} ms")
+              f"and of all; kernel {k_ms:.4f} ms (device {d_ms:.4f} ms, "
+              f"{b_['bound_ms'] / d_ms:.4f} of the bound), plain {p_ms:.4f} ms")
         if ms is None:
             ms, plain_ms, dev_ms = k_ms, p_ms, d_ms
             lib_ms = cuda_ms(lambda: library_combine_bwd(gd2_t[None], gsel_t[None], g, G,

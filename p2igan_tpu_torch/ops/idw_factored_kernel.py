@@ -41,7 +41,7 @@ MAX_K = 8          # csrc kMaxK
 MAX_CANDIDATES = 64  # csrc kMaxCand: kf * k
 BWD_THREADS = 512  # csrc/combine_table_multi_bwd.cu kThreads: (pixel, z) pairs a block
 # #4's budget for a block's tile of window totals (8 bytes an entry,
-# csrc/fixed_sum.cuh): 3 windows at the widest tile row at D=16, k=4 (129
+# csrc/fixed_sum.cuh): 3 windows at the widest tile row at D=16, G=128, k=4 (129
 # slots), so two blocks share an SM; at a block's own row (a few slots) it
 # holds every window of the training shape
 BWD_WINDOWS_TILE_BYTES = 64 * 1024

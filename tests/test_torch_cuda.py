@@ -144,8 +144,9 @@ def test_combine_table_multi_bwd_kernel(dev, kind, D, N, k):
     combine): max abs error <= 1e-5 x max|plain|, because the kernel sums in
     64-bit fixed point and the plain version in float32 in autograd's order.
     The fixed-point sum is order-free: a second launch, and launches whose
-    tile budget takes one window a round at the widest row, or every window,
-    give the same bits."""
+    tile budget holds one window or every window at the widest row (every
+    slot; a block's own row is narrower, so a round takes one or more), give
+    the same bits."""
     rng = np.random.default_rng(5)
     mask = torch.from_numpy(_mask(kind, *MULTI_BWD_SHAPE, rng)).to(dev)
     gd2, gsel, _ = factored_prepare_full(mask, 128, k=k)
