@@ -10,7 +10,7 @@
    - at the shapes of the stis serving path (p2igan_baseline_eval.json:
      128x128, T=16, window batch 8, G=128 gauge slots, k=4):
      gauge_topk (gsel equal, gd2 bitwise, on a random 79-gauge mask and a
-     tie-heavy regular grid), combine_table_multi (max abs error <= 1e-5 and
+     tie-heavy regular grid; a call and the device time), combine_table_multi (max abs error <= 1e-5 and
      the top gauge slot of every (z, pixel) identical; a call and the device
      time at N=8 and N=12), maxpool2_duplicate
      (bitwise at the three pyramid shapes of serving and of training and in
@@ -59,8 +59,9 @@
      chains (distances -> ``topk`` -> gather -> weighted sum, or ->
      ``index_add_``);
    - the batched gauge top-k (12 or 8 masks a launch) against single-mask
-     launches, its plain version and the CPU path, bitwise, with the slot
-     geometry on the device against the host's numpy, bitwise and timed;
+     launches, its plain version and the CPU path, bitwise (a call and the
+     device time), with the slot geometry on the device against the host's
+     numpy, bitwise and timed;
    - ``idw_3d_factored`` on one full-size window, forward and backward,
      against the CPU path;
    - the two events served through ``scripts/infer_torch.py`` under the masks
@@ -102,11 +103,15 @@
      versions (``F.conv3d`` + activation) at the serving chunk (B=8) and at an
      odd shape: |kernel - plain| <= 5e-6 + 1e-5 |plain| (summation order over
      1.3e8 outputs; whether 1e-6 held is printed); both sides' distance to a
-     float64 plain version; the cuDNN chain timed as ``library_ms``; and the
-     neighbouring cuDNN layers timed in both 5-D memory formats;
+     float64 plain version; a call and the device time; the cuDNN chain timed
+     as ``library_ms``; and the neighbouring cuDNN layers timed in both 5-D
+     memory formats;
    - serves the two fake events through ``scripts/infer_torch.py`` with both
      kernels (2 launches of each an event) and once with dec2 through cuDNN
      (``model.dec2_fused`` false), each against the port's plain CPU path;
+     profiles one event (idle share, #14's and #15's share of the kernel
+     time) and times its reconstruction with and without cuDNN's deterministic
+     flag, in turns (a measurement; the policy stays deterministic);
    - trains 15 rec-loss steps and 15 hinge-GAN steps (against the simple
      BatchNorm critic) at batch 12 through ``scripts/train_torch.py``: every
      parameter's last gradient finite and non-zero, running statistics moved,
@@ -410,21 +415,44 @@ def check_gauge_topk(masks) -> dict:
         err = max(err, float((gd2_k - gd2_p).abs().max()))
         k_ms = cuda_ms(lambda: gauge_topk(*args, k=K))
         p_ms = cuda_ms(lambda: gauge_topk_reference(*args, k=K))
+        d_ms = topk_device_ms(args)
         print(f"gauge_topk[{name}] HW={H * W} G={G} k={K}: equal; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"kernel {k_ms:.4f} ms (device {d_ms:.4f} ms, "
+              f"{topk_bound(1, G)['bound_ms'] / d_ms:.4f} of the bound), plain {p_ms:.4f} ms")
         if ms is None:
-            ms, plain_ms = k_ms, p_ms
+            ms, plain_ms, dev_ms = k_ms, p_ms, d_ms
     # the library chain: all (pixel, slot) distances, then topk
     qx, qy, gx, gy, pen = gauge_geometry(masks["random79"], G)[:5]
     lib_ms = cuda_ms(lambda: torch.topk((qx[:, None] - gx) ** 2 + (qy[:, None] - gy) ** 2
                                         + pen, K, dim=1, largest=False))
     print(f"gauge_topk library chain (distances -> topk): {lib_ms:.4f} ms")
-    # two coordinates a pixel and three numbers a slot in, k distances and k
-    # slot ids a pixel out; 6 flops a (pixel, slot) distance, a k-round scan
+    b_ = topk_bound(1, G)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **b_,
+            "bound_share": b_["bound_ms"] / dev_ms, "library_ms": lib_ms}
+
+
+def topk_bound(batch: int, slots: int) -> dict:
+    """#1 for ``batch`` masks of ``slots`` slots: two coordinates a pixel and
+    three numbers a slot in, k distances and k slot ids a pixel out; 6 flops a
+    (pixel, slot) distance and its compare with the k-th place (the one pass;
+    its rare entries are not counted)."""
     hw = H * W
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound(4 * (2 * hw + 3 * G + 2 * K * hw), hw * G * (6 + K)),
-            "library_ms": lib_ms}
+    return bound(4 * (2 * hw + 3 * batch * slots + 2 * K * batch * hw),
+                 batch * hw * slots * 7)
+
+
+def topk_device_ms(args) -> float:
+    """Device time of one #1 launch on ``args`` (qx, qy, gx, gy, pen) by
+    ``graph_ms``, over as many copies of the inputs as make each come back
+    after ``ROTATE_BYTES`` of traffic (the inputs read, gd2 and gsel written)."""
+    qx, gx = args[0], args[2]
+    batch = gx.shape[0] if gx.dim() == 2 else 1
+    per_call = 4 * (2 * qx.numel() + 3 * gx.numel() + 2 * K * batch * qx.numel())
+    n = -(-ROTATE_BYTES // per_call)
+    ins = [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    ms = graph_ms(lambda i: gauge_topk(*ins[i], k=K), n)
+    del ins
+    return ms
 
 
 def check_combine(masks, dev) -> dict:
@@ -735,12 +763,12 @@ def check_gauge_topk_batched(dev) -> None:
                 gauge_geometry_host(masks[b], slots)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / 5 * 1e3
-        hw = H * W
-        b_ = bound(4 * (2 * hw + 3 * batch * slots + 2 * K * batch * hw),
-                   batch * hw * slots * (6 + K))
+        dev_ms = topk_device_ms(args)
+        b_ = topk_bound(batch, slots)
         print(f"gauge_topk[sti {label}] B={batch} masks, {n_gauges} gauges in G={slots} "
               f"slots: equal to the plain version, to {batch} single launches and to "
-              f"the CPU path (bitwise); one launch {one_ms:.4f} ms, {batch} launches "
+              f"the CPU path (bitwise); one launch {one_ms:.4f} ms (device {dev_ms:.4f} ms, "
+              f"{b_['bound_ms'] / dev_ms:.4f} of the bound), {batch} launches "
               f"{loop_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms "
               f"({b_['bound_by']}); slot geometry on the device {geo_ms:.4f} ms, on the "
               f"host (copy, numpy, upload; {batch} masks) {host_ms:.4f} ms")
@@ -2341,6 +2369,8 @@ def check_fused_conv(dev, name: str, kernel, plain, chain, shapes, make) -> dict
             wc = weight.permute(4, 3, 0, 1, 2).contiguous()
             with torch.no_grad():
                 k_ms = cuda_ms(lambda: kernel(x, weight, bias))
+                # one input: it alone is larger than ROTATE_BYTES or its output is
+                d_ms = graph_ms(lambda i: kernel(x, weight, bias), 1)
                 p_ms = cuda_ms(lambda: plain(x, weight, bias), reps=10)
                 lib_ms = cuda_ms(lambda: chain(xc, wc, bias), reps=10)
             b_, t_, h_, w_, cin = x.shape
@@ -2350,10 +2380,12 @@ def check_fused_conv(dev, name: str, kernel, plain, chain, shapes, make) -> dict
             nbytes = 4 * (x.numel() + out_k.numel() + weight.numel() + bias.numel())
             bnd = {**bound(nbytes, flops), "library_ms": lib_ms}
             line += (f"; kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
-                     f"{nbytes / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, cuDNN chain "
-                     f"(conv, then activation) {lib_ms:.4f} ms, bound "
+                     f"{nbytes / k_ms / 1e6:.0f} GB/s; device {d_ms:.4f} ms, "
+                     f"{bnd['bound_ms'] / d_ms:.4f} of the bound), plain {p_ms:.4f} ms, "
+                     f"cuDNN chain (conv, then activation) {lib_ms:.4f} ms, bound "
                      f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bnd}
+            result = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "device_ms": d_ms,
+                      **bnd, "bound_share": bnd["bound_ms"] / d_ms}
         print(line)
     return result
 
@@ -2471,7 +2503,41 @@ def serve_simple(tmp: Path, card: str, dev) -> dict:
         if fused:
             launches = got
             profile_simple_serving(tmp, cfg_path, checkpoint, dev)
+            simple_deterministic_cudnn_cost(tmp, cfg_path, checkpoint, card, dev)
     return launches
+
+
+def simple_deterministic_cudnn_cost(tmp: Path, cfg_path: Path, checkpoint: Path, card: str,
+                                    dev) -> None:
+    """One 64-frame event's reconstruction through the folded simple generator
+    (both kernels) with cuDNN's deterministic flag as the precision policy sets
+    it and without, in turns (on, off, off, on; 3 events each): a measurement
+    only, the policy stays deterministic."""
+    cfg = load_config(cfg_path)
+    ev = zarrlite.open(tmp / "test_events.zarr", mode="r")["event_01"][:]
+    ev = ev[..., None].astype(np.float32) / 255.0
+    mask = np.loadtxt(cfg["data"]["test"]["mask"]["file"]).astype(np.float32)
+    masks = np.broadcast_to(mask[None, :, :, None], ev.shape).astype(np.float32)
+    recon = SlidingWindowReconstructor(load_generator(cfg, checkpoint, dev), stride=16,
+                                       overlap=12, window_batch=WINDOW_BATCH)
+    times = {True: [], False: []}
+    try:
+        for det in (True, False, False, True):
+            torch.backends.cudnn.deterministic = det
+            recon(ev * masks, masks)  # the first call under a flag picks its algorithms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                recon(ev * masks, masks)
+            torch.cuda.synchronize()
+            times[det].append((time.perf_counter() - t0) / 3 * 1e3)
+    finally:
+        set_precision_policy()
+    on, off = statistics.mean(times[True]), statistics.mean(times[False])
+    print(f"simple serving reconstruction, one {EVENT_FRAMES}-frame event: {on:.2f} ms with "
+          f"deterministic cuDNN (the policy; {[round(t, 2) for t in times[True]]}), "
+          f"{off:.2f} ms without ({[round(t, 2) for t in times[False]]}): "
+          f"{(on / off - 1) * 100:+.2f}% on {card}")
 
 
 def profile_simple_serving(tmp: Path, cfg_path: Path, checkpoint: Path, dev) -> None:
@@ -2506,12 +2572,21 @@ def profile_simple_serving(tmp: Path, cfg_path: Path, checkpoint: Path, dev) -> 
     # event's transfers over PCIe are named Memcpy HtoD / DtoH
     copies = sum(r.self_device_time_total for r in rows
                  if "copy" in r.key.lower() and "HtoD" not in r.key and "DtoH" not in r.key)
+    ours = {name: sum(r.self_device_time_total for r in rows
+                      if f"{name}(" in r.key or f"{name}<" in r.key)
+            for name in ("enc0_kernel", "dec2_kernel")}
     print(f"simple serving profile, one {EVENT_FRAMES}-frame event (2 generator calls): "
           f"wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, idle share "
           f"{1.0 - busy_us / wall_us:.3f}; copy kernels on the device {copies / 1e3:.3f} ms "
-          f"= {copies / total:.4f} of kernel time; kernels by device time (ms, calls):\n  "
+          f"= {copies / total:.4f} of kernel time; #14 (enc0_kernel) "
+          f"{ours['enc0_kernel'] / 1e3:.3f} ms = {ours['enc0_kernel'] / total:.4f} and #15 "
+          f"(dec2_kernel) {ours['dec2_kernel'] / 1e3:.3f} ms = "
+          f"{ours['dec2_kernel'] / total:.4f} of kernel time; kernels by device time (ms, "
+          f"calls):\n  "
           + "\n  ".join(f"{r.key[:90]} {r.self_device_time_total / 1e3:.3f} {r.count}"
                         for r in rows[:14]))
+    if not all(us > 0 for us in ours.values()):
+        fail(f"the simple serving profile shows no device time for {ours}")
     if not copies <= 0.02 * total:
         fail(f"simple serving copies {copies / total:.3f} of its device time: a layout "
              f"conversion sits between the kernels and cuDNN")

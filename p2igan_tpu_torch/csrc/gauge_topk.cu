@@ -2,20 +2,37 @@
 //
 // Replaces p2igan_tpu/ops/pallas/idw_factored_kernel.py::gauge_topk_pallas
 // (_gauge_topk_kernel). For every pixel p: d2[g] = dx*dx + dy*dy + penalty[g]
-// to every gauge slot g (padding slots carry a 1e30 penalty), then k rounds of
-// first-min extraction; each round writes the minimum and the LOWEST slot index
-// attaining it, and sets that slot to 1e30. With fewer than k valid slots a later
-// round may pick an already-taken slot again (the lowest slot holding 1e30):
-// that is the reference rule (p2igan_tpu/ops/idw.py:186-193) and gsel keeps it.
+// to every gauge slot g (padding slots carry a 1e30 penalty), then the result of
+// k rounds of first-min extraction: each round writes the minimum and the LOWEST
+// slot index attaining it, and sets that slot to 1e30. With fewer than k valid
+// slots a later round picks an already-taken slot again (the lowest slot holding
+// 1e30): that is the reference rule (p2igan_tpu/ops/idw.py:186-193) and gsel
+// keeps it.
+//
+// One pass instead of k rounds: each distance is computed once, and a thread
+// keeps its pixel's k best (distance, slot) sorted in registers while it walks
+// the slots in ascending order, entering on a strict < so that among equal
+// distances the lower slot stays ahead. That is the first k of the (distance,
+// slot) order, which is what the rounds take while valid slots remain. With
+// m < k valid slots every slot holds 1e30 after round m (a padding slot's
+// d2 + 1e30 rounds to 1e30 exactly, a taken one is set to it), so each later
+// round gives 1e30 and the lowest of the taken and padding slots; the list
+// holds the m taken slots and the lowest padding slots, so every place at 1e30
+// takes the lowest slot of the list (tests/test_torch_gauge_topk_model.py holds
+// this rule against the rounds and the JAX package's selection). Distances
+// above 1e30 (a penalty above it) are outside this rule; gauge_geometry makes
+// none.
 //
 // Bound on the H100: neither bytes (20 B in, 32 B out per pixel at k=4) nor
-// FLOPs (k*G distance evaluations per pixel, ~8.4 M at 128x128 and G=128);
-// the kernel runs once per event mask (stis) or once per window batch and
-// train step for all its masks (sti), so launch latency dominates. One thread
-// per pixel with the G gauge coordinates in shared memory keeps it to one pass
-// over global memory. The taken slots live in registers (k <= kMaxK) and a taken
-// slot is re-evaluated as 1e30, which is the literal replacement rule without an
-// (HW, G) working array.
+// operations (G distances a pixel): the parent's k rounds re-evaluated every
+// slot k times with a check against the taken ones, ~14 instructions a slot
+// visit. Here a slot costs ~8 a pixel, and its entry runs only when it beats
+// the k-th place. One thread a pixel, 128 a block: at the sti shapes (B = 8 or
+// 12 masks of 16384 pixels) that is 1024-1536 blocks, and more resident warps
+// beat more pixels a thread sharing one slot load (PERF.md, #1's stage table).
+// The slots sit in shared memory as 16-byte (x, y, penalty) records, read as
+// broadcasts, kU at a time: their distances are computed before any entry's
+// branch, so the slot loop is not one dependent chain a slot.
 //
 // Rounding: d2 is computed with explicit round-to-nearest intrinsics (no FMA
 // contraction), in the order ((dx*dx) + (dy*dy)) + penalty of the plain PyTorch
@@ -27,67 +44,110 @@
 // the single-mask call, with the same arithmetic.
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
-constexpr int kMaxK = 8;
 constexpr float kBig = 1e30f;
+constexpr int kThreads = 128;
+constexpr int kU = 8;                // slots a step: their distances, then their entries
 
-__global__ void gauge_topk_kernel(const float* __restrict__ qx,
-                                  const float* __restrict__ qy,
-                                  const float* __restrict__ gx,
-                                  const float* __restrict__ gy,
-                                  const float* __restrict__ pen,
-                                  float* __restrict__ gd2,
-                                  int* __restrict__ gsel,
-                                  int HW, int G, int k) {
-  extern __shared__ float smem[];
+// ((dx*dx) + (dy*dy)) + penalty, each step rounded to nearest (no contraction)
+__device__ __forceinline__ float distance(float px, float py, float4 s) {
+  const float dx = __fsub_rn(px, s.x);
+  const float dy = __fsub_rn(py, s.y);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), s.z);
+}
+
+// Enter (d, g) into the sorted places (bd, bi) if it is below the last one:
+// strict <, so that among equal distances the earlier (lower) slot stays ahead.
+template <int K>
+__device__ __forceinline__ void enter(float d, int g, float (&bd)[K], int (&bi)[K]) {
+  if (!(d < bd[K - 1])) return;
+  // top down, so that place j reads place j - 1 before it changes
+#pragma unroll
+  for (int j = K - 1; j > 0; --j) {
+    const bool up = d < bd[j - 1];
+    const bool here = !up && d < bd[j];
+    bd[j] = up ? bd[j - 1] : (here ? d : bd[j]);
+    bi[j] = up ? bi[j - 1] : (here ? g : bi[j]);
+  }
+  if (d < bd[0]) {
+    bd[0] = d;
+    bi[0] = g;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+gauge_topk_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
+                  const float* __restrict__ gx, const float* __restrict__ gy,
+                  const float* __restrict__ pen, float* __restrict__ gd2,
+                  int* __restrict__ gsel, int HW, int G) {
+  extern __shared__ float4 slots[];  // (x, y, penalty, unused) a slot
   const size_t b = blockIdx.y;
   gx += b * G;
   gy += b * G;
   pen += b * G;
-  gd2 += b * k * HW;
-  gsel += b * k * HW;
-  float* sx = smem;
-  float* sy = smem + G;
-  float* sp = smem + 2 * G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    sx[g] = gx[g];
-    sy[g] = gy[g];
-    sp[g] = pen[g];
-  }
+  gd2 += b * K * HW;
+  gsel += b * K * HW;
+  for (int g = threadIdx.x; g < G; g += kThreads)
+    slots[g] = make_float4(gx[g], gy[g], pen[g], 0.f);
   __syncthreads();
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= HW) return;
-  const float px = qx[p];
-  const float py = qy[p];
-
-  int taken[kMaxK];
+  const float px = qx[p], py = qy[p];
+  float bd[K];
+  int bi[K];
 #pragma unroll
-  for (int a = 0; a < kMaxK; ++a) {
-    if (a >= k) break;
-    float best = 0.0f;
-    int bi = -1;
-    for (int g = 0; g < G; ++g) {
-      bool was_taken = false;
-#pragma unroll
-      for (int b = 0; b < a; ++b) was_taken |= (taken[b] == g);
-      float d = kBig;
-      if (!was_taken) {
-        const float dx = __fsub_rn(px, sx[g]);
-        const float dy = __fsub_rn(py, sy[g]);
-        d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), sp[g]);
-      }
-      if (bi < 0 || d < best) {  // strict <: the lowest index wins a tie
-        best = d;
-        bi = g;
-      }
-    }
-    taken[a] = bi;
-    gd2[a * HW + p] = best;
-    gsel[a * HW + p] = bi;
+  for (int j = 0; j < K; ++j) {
+    bd[j] = INFINITY;  // every distance is <= 1e30: the first K slots enter
+    bi[j] = 0;
   }
+
+  // kU slots a step: their kU distances first (independent work between the
+  // entries' branches), then their entries in slot order
+  int g = 0;
+  for (; g + kU <= G; g += kU) {
+    float d[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) d[u] = distance(px, py, slots[g + u]);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) enter<K>(d[u], g + u, bd, bi);
+  }
+  for (; g < G; ++g) enter<K>(distance(px, py, slots[g]), g, bd, bi);
+
+  if (bd[K - 1] >= kBig) {  // fewer than K valid slots: the rounds' rule
+    int low = bi[0];
+#pragma unroll
+    for (int j = 1; j < K; ++j) low = min(low, bi[j]);
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (bd[j] >= kBig) bi[j] = low;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    gd2[j * HW + p] = bd[j];
+    gsel[j * HW + p] = bi[j];
+  }
+}
+
+template <int K>
+int launch(const float* qx, const float* qy, const float* gx, const float* gy,
+           const float* pen, float* gd2, int* gsel, int B, int HW, int G,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * static_cast<size_t>(G);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gauge_topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const dim3 blocks((HW + kThreads - 1) / kThreads, B);
+  gauge_topk_kernel<K><<<blocks, kThreads, smem, stream>>>(qx, qy, gx, gy, pen, gd2, gsel,
+                                                            HW, G);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -96,10 +156,16 @@ extern "C" int p2i_gauge_topk(const float* qx, const float* qy, const float* gx,
                               const float* gy, const float* pen, float* gd2,
                               int* gsel, int B, int HW, int G, int k,
                               void* stream) {
-  const int threads = 128;
-  const dim3 blocks((HW + threads - 1) / threads, B);
-  const size_t smem = 3 * static_cast<size_t>(G) * sizeof(float);
-  gauge_topk_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      qx, qy, gx, gy, pen, gd2, gsel, HW, G, k);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 1: return launch<1>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 2: return launch<2>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 3: return launch<3>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 4: return launch<4>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 5: return launch<5>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 6: return launch<6>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 7: return launch<7>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    case 8: return launch<8>(qx, qy, gx, gy, pen, gd2, gsel, B, HW, G, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -36,9 +36,9 @@ def conv3d_cout1_sigmoid_reference(x: torch.Tensor, weight: torch.Tensor,
 
 
 def shared_bytes(channels: int) -> int:
-    """Dynamic shared memory of the kernel: two buffers of three haloed
-    32x64 input tiles (row pitch 68), and 28 weights a channel."""
-    return 4 * (2 * 3 * 34 * 68 + channels * 28)
+    """Dynamic shared memory of the kernel: a ring of four haloed 32x64 input
+    slices (row pitch 72), and 28 weights a channel."""
+    return 4 * (4 * 34 * 72 + channels * 28)
 
 
 def conv3d_cout1_sigmoid(x: torch.Tensor, weight: torch.Tensor,

@@ -161,7 +161,8 @@ def gauge_topk(qx: torch.Tensor, qy: torch.Tensor, gx: torch.Tensor,
         raise ValueError(f"{name}: shape mismatch {qx.shape} {qy.shape} "
                          f"{gx.shape} {gy.shape} {penalty.shape}")
     B = lead[0] if lead else 1
-    if not 1 <= k <= min(MAX_K, G) or HW == 0 or B == 0 or 3 * 4 * G > 48 * 1024:
+    # a 16-byte shared record a slot, at most 64 KB of them
+    if not 1 <= k <= min(MAX_K, G) or HW == 0 or B == 0 or 16 * G > 64 * 1024:
         raise ValueError(f"{name}: unsupported k={k}, G={G}, HW={HW}, B={B}")
     gd2 = torch.empty(lead + (k, HW), device=qx.device, dtype=torch.float32)
     gsel = torch.empty(lead + (k, HW), device=qx.device, dtype=torch.int32)

@@ -280,6 +280,30 @@ def test_batched_gauge_topk_equals_single_masks_and_cpu(dev, H, W, bs, G, k):
     assert torch.equal(gd2.view(torch.int32), rd2.view(torch.int32))
 
 
+@pytest.mark.parametrize("k", [4, 3])
+def test_batched_gauge_topk_mixes_masks_of_fewer_than_k_gauges(dev, k):
+    """Masks of 0, 1, 2 and 3 gauges between full sti masks at G=256 in one
+    launch: the one pass's fewer-than-k rule (every place at 1e30 takes the
+    lowest slot of its list) gives the plain rounds' gd2 and gsel bit for bit,
+    mask by mask."""
+    from p2igan_tpu_torch.data.masks import create_mask_np
+
+    rng = np.random.default_rng(4)
+    full = [create_mask_np((1, 128, 128, 1), rng, "sti", block_sizes=[10])[0, :, :, 0]
+            for _ in range(3)]
+    few = [_mask(str(n), 128, 128, rng) if n else _mask("empty", 128, 128, rng)
+           for n in (0, 1, 2, 3)]
+    masks = torch.from_numpy(np.stack([few[0], full[0], few[1], few[2], full[1], few[3],
+                                       full[2]])).to(dev)
+    args = gauge_geometry(masks, 256)[:5]
+    gd2, gsel = K.gauge_topk(*args, k=k)
+    rd2, rsel = K.gauge_topk_reference(*args, k=k)
+    assert torch.equal(gsel, rsel)
+    assert torch.equal(gd2.view(torch.int32), rd2.view(torch.int32))
+    assert int((gd2[0] == K.BIG).sum()) == k * 128 * 128     # no gauge: every place
+    assert int(gsel[0].max()) == 0 and int(gsel[2, 1:].max()) == 0
+
+
 # (D, G, k) of the per-sample combine cases (#5, #6); G=1152 takes block-1
 # masks (every pixel a gauge, 960 of them), the others block 4
 STI_FWD_CASES = [(16, 128, 4), (16, 1152, 4), (4, 256, 4), (1, 128, 4), (16, 128, 3)]
@@ -751,8 +775,10 @@ def test_enc0_kernel_matches_plain(dev, b, t, h, w, cin, cout):
     _held(E.enc0_conv3d_leaky(x[-1:].contiguous(), k, bias), got[-1:])
 
 
+# T of 6, 7 and 9: frame groups of 4 that end past the window
 DEC2_SHAPES = [(2, 4, 16, 16, 8), (3, 3, 37, 45, 5), (4, 1, 16, 33, 1),
-               (2, 5, 33, 130, 16), (1, 16, 128, 128, 64)]
+               (2, 5, 33, 130, 16), (1, 16, 128, 128, 64), (2, 6, 40, 70, 7),
+               (3, 7, 32, 64, 3), (1, 9, 65, 129, 12)]
 
 
 @pytest.mark.parametrize("b,t,h,w,c", DEC2_SHAPES)

@@ -132,7 +132,7 @@ def test_wrappers_reject_shapes_that_do_not_fit():
     # serving widths fit a block's shared memory, absurd ones do not
     assert E.shared_bytes(2, 64) == 4 * (55 * 64 + 3 * 2 * 18 * 34) < 48 * 1024
     assert E.shared_bytes(4, 2048) > E.MAX_SHARED_BYTES
-    assert D.shared_bytes(64) == 4 * (2 * 3 * 34 * 68 + 64 * 28) < E.MAX_SHARED_BYTES
+    assert D.shared_bytes(64) == 4 * (4 * 34 * 72 + 64 * 28) < E.MAX_SHARED_BYTES
     assert D.shared_bytes(2000) > E.MAX_SHARED_BYTES
 
 
