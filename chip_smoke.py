@@ -24,7 +24,8 @@
      and of all 12 at the widest row; a call and the device time) and
      decode_normalize_mask
      ((12, 16, 128, 128, 1) uint8 with a (12, 1, 128, 128, 1) mask; bitwise
-     against the numpy decode).
+     against the numpy decode; a call and the device time, each beside the
+     elementwise chain's).
 3. Serves two 64-frame 128x128 fake events through ``scripts/infer_torch.py``
    (seeded full-width generator saved as a reference-layout .pt, stride 16,
    overlap 12, window batch 8) and checks the output store, that it equals
@@ -60,8 +61,8 @@
      ``index_add_``);
    - the batched gauge top-k (12 or 8 masks a launch) against single-mask
      launches, its plain version and the CPU path, bitwise (a call and the
-     device time), with the slot geometry on the device against the host's
-     numpy, bitwise and timed;
+     device time, beside the distances -> ``topk`` chain), with the slot
+     geometry on the device against the host's numpy, bitwise and timed;
    - ``idw_3d_factored`` on one full-size window, forward and backward,
      against the CPU path;
    - the two events served through ``scripts/infer_torch.py`` under the masks
@@ -686,14 +687,24 @@ def check_decode(dev) -> dict:
                  f"numpy decode")
     k_ms = cuda_ms(lambda: decode_normalize_mask(u8_d, mask_d))
     p_ms = cuda_ms(lambda: decode_normalize_mask_reference(u8_d, mask_d))
-    gbs = (u8.size * 9 + mask.size) / (k_ms * 1e-3) / 1e9
-    print(f"decode_normalize_mask{u8.shape} mask {mask.shape}: bitwise equal to "
-          f"numpy (kernel and plain); kernel {k_ms:.4f} ms ({gbs:.0f} GB/s), "
-          f"plain {p_ms:.4f} ms")
+    # device times by graph replay, over input copies that leave L2 between uses
+    n = -(-ROTATE_BYTES // (u8.size * 9 + mask.size))
+    ins = [(u8_d, mask_d)] + [(u8_d.clone(), mask_d.clone()) for _ in range(n - 1)]
+    d_ms = graph_ms(lambda i: decode_normalize_mask(*ins[i]), n)
+    dp_ms = graph_ms(lambda i: decode_normalize_mask_reference(*ins[i]), n)
+    del ins
     # a byte and (once per plane) a mask byte in, two floats out; 2 flops. The
     # plain version is the elementwise chain (convert, divide, multiply)
-    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
-            **bound(u8.size * 9 + mask.size, u8.size * 2), "library_ms": p_ms}
+    b_ = bound(u8.size * 9 + mask.size, u8.size * 2)
+    gbs = (u8.size * 9 + mask.size) / (d_ms * 1e-3) / 1e9
+    print(f"decode_normalize_mask{u8.shape} mask {mask.shape}: bitwise equal to "
+          f"numpy (kernel and plain); kernel {k_ms:.4f} ms a call (device {d_ms:.5f} ms, "
+          f"{gbs:.0f} GB/s, {b_['bound_ms'] / d_ms:.4f} of the bound "
+          f"{b_['bound_ms']:.5f} ms), plain (the elementwise chain) {p_ms:.4f} ms a call "
+          f"(device {dp_ms:.5f} ms)")
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "device_ms": d_ms, **b_,
+            "bound_share": b_["bound_ms"] / d_ms, "library_ms": p_ms,
+            "library_device_ms": dp_ms}
 
 
 # -- the per-sample (sti) factored IDW ----------------------------------------
@@ -765,11 +776,17 @@ def check_gauge_topk_batched(dev) -> None:
         host_ms = (time.perf_counter() - t0) / 5 * 1e3
         dev_ms = topk_device_ms(args)
         b_ = topk_bound(batch, slots)
+        # the library chain: every (sample, pixel, slot) distance, then topk
+        qx, qy, gx, gy, pen = args
+        lib_ms = cuda_ms(lambda: torch.topk(
+            (qx[None, :, None] - gx[:, None]) ** 2 + (qy[None, :, None] - gy[:, None]) ** 2
+            + pen[:, None], K, dim=2, largest=False), reps=10)
         print(f"gauge_topk[sti {label}] B={batch} masks, {n_gauges} gauges in G={slots} "
               f"slots: equal to the plain version, to {batch} single launches and to "
               f"the CPU path (bitwise); one launch {one_ms:.4f} ms (device {dev_ms:.4f} ms, "
               f"{b_['bound_ms'] / dev_ms:.4f} of the bound), {batch} launches "
-              f"{loop_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms "
+              f"{loop_ms:.4f} ms, plain {plain_ms:.4f} ms, library chain (distances -> "
+              f"topk) {lib_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms "
               f"({b_['bound_by']}); slot geometry on the device {geo_ms:.4f} ms, on the "
               f"host (copy, numpy, upload; {batch} masks) {host_ms:.4f} ms")
 

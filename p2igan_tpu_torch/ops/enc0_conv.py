@@ -50,9 +50,11 @@ def enc0_conv3d_leaky_reference(x: torch.Tensor, weight: torch.Tensor,
 
 def shared_bytes(cin: int, cout: int) -> int:
     """Dynamic shared memory of the kernel: the weights and bias padded to 32
-    output channels, and three haloed 16x32 input tiles a channel."""
+    output channels, and a ring of four haloed 16x128 input slices, channels
+    last, each row ``128 * cin + 8`` floats (a chunk of 16 bytes beyond each
+    side of the tile's columns, for the halo)."""
     cout_pad = -(-cout // 32) * 32
-    return 4 * ((27 * cin + 1) * cout_pad + 3 * cin * 18 * 34)
+    return 4 * ((27 * cin + 1) * cout_pad + 4 * 18 * (128 * cin + 8))
 
 
 def enc0_conv3d_leaky(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -76,6 +78,9 @@ def enc0_conv3d_leaky(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if not 1 <= cin <= MAX_CIN or x.numel() == 0 or cout == 0:
         raise ValueError(f"{name}: unsupported Cin={cin} (1..{MAX_CIN}), "
                          f"x {tuple(x.shape)}, Cout={cout}")
+    if H * W * cin >= 2**31:
+        raise ValueError(f"{name}: a frame of {H}x{W}x{cin} floats (the kernel's "
+                         f"offsets in a frame are 32-bit)")
     if shared_bytes(cin, cout) > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: Cin={cin}, Cout={cout} need "
                          f"{shared_bytes(cin, cout)} bytes of shared memory")

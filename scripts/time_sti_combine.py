@@ -77,6 +77,8 @@ def entry_params(text: str, entry: str) -> list:
         name = re.findall(r"\w+", decl)[-1]
         if "*" in decl:
             params.append((name, ctypes.c_void_p))
+        elif decl.startswith("long long"):
+            params.append((name, ctypes.c_longlong))
         elif decl.startswith("float"):
             params.append((name, ctypes.c_float))
         else:
@@ -104,7 +106,7 @@ def build(trees: dict, kernels: dict = KERNELS, out_dir: Path = BUILD) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {label} ({src}):\n{log}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 print(f"  ptxas [{label} {kernel}]: {line.strip()}")
         entry = kernels[kernel][1]
         params = entry_params(src.read_text(), entry)

@@ -216,6 +216,45 @@ def test_decode_normalize_mask_kernel_bitwise(dev, shape, mshape, mdtype):
     assert np.array_equal(plain[0].cpu().numpy().view(np.int32), host.view(np.int32))
 
 
+# (frames, mask, mask dtype, bytes the frames start past an allocation): the
+# 4-wide path (planes of 16 k and 4 k + 4, a frame pointer 4 bytes off) and
+# the 1-wide path (an odd plane, a frame pointer 1 byte off)
+DECODE_CASES = [((12, 16, 128, 128, 1), (12, 1, 128, 128, 1), np.uint8, 0),
+                ((3, 5, 12, 5, 1), (3, 1, 12, 5, 1), np.uint8, 0),
+                ((3, 5, 12, 5, 1), (3, 5, 12, 5, 1), np.float32, 0),
+                ((2, 3, 5, 7, 1), (2, 1, 5, 7, 1), np.float32, 0),
+                ((2, 3, 16, 16, 1), (2, 1, 16, 16, 1), np.uint8, 4),
+                ((2, 3, 16, 16, 1), (2, 3, 16, 16, 1), np.float32, 4),
+                ((2, 3, 16, 16, 1), (2, 1, 16, 16, 1), np.uint8, 1),
+                ((4, 16, 32, 32, 1), (4, 16, 32, 32, 1), np.uint8, 0)]
+DECODE_VEC4 = [True, True, True, False, True, True, False, True]
+
+
+@pytest.mark.parametrize("case,vec4", list(zip(DECODE_CASES, DECODE_VEC4)))
+def test_decode_normalize_mask_kernel_paths_bitwise(dev, case, vec4):
+    """Kernel #11 on its 4-wide and 1-wide paths, against the numpy decode:
+    bitwise, and the same bits across two launches."""
+    shape, mshape, mdtype, offset = case
+    rng = np.random.default_rng(11 + offset)
+    u8 = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    mask = (rng.random(mshape) < 0.3).astype(mdtype)
+    frames = torch.empty(u8.size + offset, dtype=torch.uint8, device=dev)[offset:]
+    frames = frames.view(shape).copy_(torch.from_numpy(u8))
+    mask_d = torch.from_numpy(mask).to(dev)
+    # the wrapper's choice of path (ops/decode_mask.py)
+    plane = u8.size // (shape[0] * shape[1]) if mshape[1] == 1 else u8.size
+    align = 16 if mask_d.dtype == torch.float32 else 4
+    assert vec4 == (plane % 4 == 0 and frames.data_ptr() % 4 == 0
+                    and mask_d.data_ptr() % align == 0)
+    video, masked = decode_normalize_mask(frames, mask_d)
+    again = decode_normalize_mask(frames, mask_d)
+    host = u8.astype(np.float32) / 255.0
+    want = host * mask.astype(np.float32)
+    assert np.array_equal(video.cpu().numpy().view(np.int32), host.view(np.int32))
+    assert np.array_equal(masked.cpu().numpy().view(np.int32), want.view(np.int32))
+    assert torch.equal(again[0], video) and torch.equal(again[1], masked)
+
+
 def test_gradients_through_both_functions(dev):
     """combine_table_multi and maxpool2_duplicate carry autograd on the card:
     their gradients equal the plain versions' (the combine within 1e-5 x max,
@@ -750,9 +789,13 @@ def _init_like(rng, shape, fan_in, dev):
 
 
 # odd sizes and ragged tiles, T=1 and T=3 windows, B>1 so that every window's
-# temporal edge is hit, Cin 1..4, Cout off the 32-channel pass
+# temporal edge is hit, Cin 1..4, Cout off the 32-channel pass; then walks
+# split into spans of frames (one-window batches; T not a multiple of the
+# span), 16-byte copies with W off the tile and 4-byte ones (W * Cin % 4 != 0)
 ENC0_SHAPES = [(2, 4, 16, 16, 2, 16), (3, 3, 37, 45, 3, 40), (4, 1, 16, 33, 1, 8),
-               (2, 5, 17, 64, 4, 64), (1, 16, 128, 128, 2, 64)]
+               (2, 5, 17, 64, 4, 64), (1, 16, 128, 128, 2, 64), (1, 17, 128, 128, 1, 40),
+               (2, 11, 96, 128, 4, 64), (1, 3, 128, 128, 2, 64), (2, 6, 20, 50, 2, 64),
+               (1, 5, 19, 31, 2, 40), (3, 9, 40, 70, 3, 64), (4, 13, 128, 128, 2, 64)]
 
 
 @pytest.mark.parametrize("b,t,h,w,cin,cout", ENC0_SHAPES)
@@ -773,6 +816,28 @@ def test_enc0_kernel_matches_plain(dev, b, t, h, w, cin, cout):
           E.enc0_conv3d_leaky_reference(x, k, bias, 0.05))
     # a window alone gives what it gives inside the batch
     _held(E.enc0_conv3d_leaky(x[-1:].contiguous(), k, bias), got[-1:])
+
+
+@pytest.mark.parametrize("b,t,h,w,cin,cout", ENC0_SHAPES[4:])
+def test_enc0_kernel_is_bitwise_the_same_however_the_walk_splits(dev, b, t, h, w, cin, cout):
+    """Each output keeps one order (bias, then dt, dy, dx, ci by fmaf), so a
+    window alone (its frames split into more spans) and a window inside the
+    batch, or in a batch of twice as many windows, give the same bits."""
+    from p2igan_tpu_torch.ops import enc0_conv as E
+
+    rng = np.random.default_rng(7 * (b + t + h + w) + cin + cout)
+    x = torch.from_numpy(rng.standard_normal((b, t, h, w, cin)).astype(np.float32)).to(dev)
+    k = _init_like(rng, (3, 3, 3, cin, cout), 27 * cin, dev)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(dev)
+    got = E.enc0_conv3d_leaky(x, k, bias)
+    alone = [E.enc0_conv3d_leaky(x[i:i + 1].contiguous(), k, bias) for i in range(b)]
+    doubled = E.enc0_conv3d_leaky(torch.cat([x, x]), k, bias)
+    torch.cuda.synchronize()
+    bits = got.contiguous().view(torch.int32)
+    for i in range(b):
+        assert torch.equal(alone[i].contiguous().view(torch.int32), bits[i:i + 1])
+    assert torch.equal(doubled[:b].contiguous().view(torch.int32), bits)
+    assert torch.equal(doubled[b:].contiguous().view(torch.int32), bits)
 
 
 # T of 6, 7 and 9: frame groups of 4 that end past the window

@@ -130,7 +130,7 @@ def test_wrappers_reject_shapes_that_do_not_fit():
         D.conv3d_cout1_sigmoid(x, torch.randn(3, 3, 3, 2, 2), torch.zeros(1))
     # what the kernels would need, computed where the CPU tests reach it: the
     # serving widths fit a block's shared memory, absurd ones do not
-    assert E.shared_bytes(2, 64) == 4 * (55 * 64 + 3 * 2 * 18 * 34) < 48 * 1024
+    assert E.shared_bytes(2, 64) == 4 * (55 * 64 + 4 * 18 * 264) < E.MAX_SHARED_BYTES // 2
     assert E.shared_bytes(4, 2048) > E.MAX_SHARED_BYTES
     assert D.shared_bytes(64) == 4 * (4 * 34 * 72 + 64 * 28) < E.MAX_SHARED_BYTES
     assert D.shared_bytes(2000) > E.MAX_SHARED_BYTES
