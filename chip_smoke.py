@@ -929,19 +929,45 @@ def check_combine_table_bwd(dev) -> dict:
     return result
 
 
-def check_combine_dense(dev) -> dict:
-    """Kernel #7: one (16, 128, 128) window, its candidate values gathered from
-    the dense field, under a block-10 and a block-4 sti mask: bitwise equal to
-    its plain version. Bytes: gd2 (k, HW) and cvals (D*k, HW) in, (D, HW) out."""
-    gen = torch.Generator().manual_seed(SEED + 2)
+def dense_case(dev, block: int, slots: int, gen) -> tuple:
+    """(gd2_t (K, HW), cvals_t (LENGTH*K, HW)), #7's inputs: one (16, 128, 128)
+    window of random values under a sti mask of ``block`` (``slots`` gauge
+    slots), its candidate values gathered from the field as ``factored_apply``
+    gathers them."""
+    mask = sti_masks(dev, 1, block)[0]
+    values = torch.randn((LENGTH, H * W), generator=gen).to(dev)
+    gd2, gpix = factored_prepare(mask, slots, k=K)
+    cvals_t = values[:, gpix.long()].permute(0, 2, 1).reshape(LENGTH * K, H * W).contiguous()
+    return gd2.t().contiguous(), cvals_t
+
+
+def dense_bound() -> dict:
+    """#7's bound: gd2 (k, HW) and cvals (D*k, HW) in, (D, HW) out; per (z,
+    pixel) kf*k = 20 candidate distances (8 flops with the sqrt and the
+    weight), k selection rounds over them and 2 k flops."""
     hw, cand = H * W, 5 * K
+    return bound(4 * hw * (K + LENGTH * K + LENGTH), LENGTH * hw * (cand * 8 + K * cand + 2 * K))
+
+
+def dense_copies(gd2_t, cvals_t) -> list:
+    """(gd2_t, cvals_t) and as many copies as make each come back to #7 only
+    after ``ROTATE_BYTES`` of traffic (its inputs read, its output written)."""
+    per_call = 4 * (gd2_t.numel() + cvals_t.numel() + cvals_t.shape[0] // K * cvals_t.shape[1])
+    return [(gd2_t, cvals_t)] + [(gd2_t.clone(), cvals_t.clone())
+                                 for _ in range(-(-ROTATE_BYTES // per_call) - 1)]
+
+
+def check_combine_dense(dev) -> dict:
+    """Kernel #7 under a block-10 and a block-4 sti mask (``dense_case``):
+    bitwise equal to its plain version; a call, the device time by
+    ``graph_ms`` over input copies that leave L2 between uses and its share
+    of the bytes bound, beside the plain version and the library chain. The
+    kernels line reports the first."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    hw = H * W
     result = {}
     for block, slots in ((STI_BLOCK, STI_G), (STI_DENSE_BLOCK, STI_DENSE_G)):
-        mask = sti_masks(dev, 1, block)[0]
-        values = torch.randn((LENGTH, hw), generator=gen).to(dev)
-        gd2, gpix = factored_prepare(mask, slots, k=K)
-        gd2_t = gd2.t().contiguous()
-        cvals_t = values[:, gpix.long()].permute(0, 2, 1).reshape(LENGTH * K, hw).contiguous()
+        gd2_t, cvals_t = dense_case(dev, block, slots, gen)
         out_k = combine_dense(gd2_t, cvals_t, K)
         out_p = combine_dense_reference(gd2_t, cvals_t, K)
         torch.cuda.synchronize()
@@ -950,16 +976,19 @@ def check_combine_dense(dev) -> dict:
             fail(f"combine_dense not bitwise equal to its plain version (block {block}): "
                  f"max abs err {e}")
         k_ms = cuda_ms(lambda: combine_dense(gd2_t, cvals_t, K))
+        ins = dense_copies(gd2_t, cvals_t)
+        g_ms = graph_ms(lambda i: combine_dense(*ins[i], K), len(ins))
+        del ins
         p_ms = cuda_ms(lambda: combine_dense_reference(gd2_t, cvals_t, K), reps=5)
         lib_ms = cuda_ms(lambda: library_combine_dense(gd2_t, cvals_t))
-        b_ = bound(4 * hw * (K + LENGTH * K + LENGTH),
-                   LENGTH * hw * (cand * 8 + K * cand + 2 * K))
+        b_ = dense_bound()
         print(f"combine_dense[block {block}] D={LENGTH} HW={hw} k={K}: bitwise equal; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library chain {lib_ms:.4f} ms, "
-              f"bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+              f"kernel {k_ms:.4f} ms (device {g_ms:.5f} ms, {b_['bound_ms'] / g_ms:.4f} of "
+              f"the bound), plain {p_ms:.4f} ms, library chain {lib_ms:.4f} ms, bound "
+              f"{b_['bound_ms']:.5f} ms ({b_['bound_by']})")
         if not result:
-            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, **b_,
-                      "library_ms": lib_ms}
+            result = {"max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, "device_ms": g_ms,
+                      **b_, "bound_share": b_["bound_ms"] / g_ms, "library_ms": lib_ms}
     return result
 
 
@@ -978,7 +1007,10 @@ def run_idw_3d_factored(dev) -> dict:
     package) on one full-size window under a block-10 sti mask, forward and
     backward. The card's field equals the CPU path's bit for bit, its gradient
     to the values (autograd of the plain version, on the card) within 1e-5 x
-    max."""
+    max. Then the forward's device time by ``graph_ms`` over input copies
+    that leave L2 between uses, and its parts: ``factored_prepare`` (the gauge
+    geometry, #1 and the slot sort), the candidate gather of
+    ``factored_apply`` (with the layouts #7 takes) and #7 itself."""
     mask = sti_masks(dev, 1, STI_BLOCK, seed=SEED + 3)[0]
     gen = torch.Generator().manual_seed(SEED + 3)
     values = torch.randn((LENGTH, H, W), generator=gen)
@@ -1004,6 +1036,31 @@ def run_idw_3d_factored(dev) -> dict:
         fail(f"idw_3d_factored launched {launches}")
     print(f"idw_3d_factored ({LENGTH}, {H}, {W}), G={STI_G}: field bitwise equal to the "
           f"CPU path, gradient within {e_g / scale:.2e} x max; launches {launches}")
+
+    mask, field = mask.to(dev), values.to(dev)
+    gd2, gpix = factored_prepare(mask, STI_G, k=K)
+
+    def gather(f, g, p):
+        cvals_t = f.reshape(LENGTH, H * W)[:, p.long()].permute(0, 2, 1)
+        return g.t().contiguous(), cvals_t.reshape(LENGTH * K, H * W).contiguous()
+
+    # as many copies of every part's inputs as #7's own traffic needs (the op
+    # and the gather move more a call; factored_prepare less, from a 64 KB mask)
+    dense = dense_copies(*gather(field, gd2, gpix))
+    n = len(dense)
+    ins = [(mask, field, gd2, gpix)] + [tuple(t.clone() for t in (mask, field, gd2, gpix))
+                                        for _ in range(n - 1)]
+    with torch.no_grad():
+        parts = {"op": graph_ms(lambda i: idw_3d_factored(ins[i][0], ins[i][1], STI_G, k=K), n),
+                 "factored_prepare": graph_ms(lambda i: factored_prepare(ins[i][0], STI_G, k=K),
+                                              n),
+                 "gather": graph_ms(lambda i: gather(*ins[i][1:]), n),
+                 "combine_dense": graph_ms(lambda i: combine_dense(*dense[i], K), n)}
+    del ins, dense
+    print(f"idw_3d_factored forward, device ms by graph replay: the op {parts['op']:.5f}; "
+          + ", ".join(f"{k_} {v:.5f} ({v / parts['op']:.3f})" for k_, v in parts.items()
+                      if k_ != "op")
+          + f"; #7's share of the op {parts['combine_dense'] / parts['op']:.3f}")
     return launches
 
 

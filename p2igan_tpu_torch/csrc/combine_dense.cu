@@ -12,10 +12,27 @@
 // divided by (sum_r w_r + 1e-12), the order of _accumulate_values in the TPU
 // kernel and of the plain PyTorch version.
 //
+// A block owns 32 pixels (a warp's lanes) and all D query frames: warp y walks
+// the frames [y * span, (y + 1) * span) of its lane's pixel, the last warp
+// fewer where span does not divide D. sqrt(gd2 + fd2) takes only nv distinct
+// fd2 values over all (z, frame) (the host's distinct_frame_table: 13 at D=16,
+// k=4), so a pixel's selections read only nv*k distances: the block's warps
+// build each pixel's table once between them (warp y fills rows y, y + Y, ...),
+// interleaved in shared memory so that a warp's reads hit 32 banks, and every
+// warp runs its frames' rounds from it (on registers for k=4, kf=5,
+// select_from_table<4, 5>). A pixel takes 52 square roots, where one thread a
+// (z, pixel) computing its 20 candidates in each of 4 rounds took 1280. The
+// span sets the warps a block (ceil(D / span)) and so the warps in flight:
+// one window has only HW / 32 pixel groups. A warp takes its frames in pairs,
+// both selections before the 2k value loads, so that the loads of the two
+// frames are in flight together.
+//
 // Bound on the H100: bytes. 4*HW*(k + D*k + D) = 5.5 MB a window at D=16, k=4,
 // 128x128 (1.6 us at 3.35 TB/s); the kernel reads only the k selected rows'
-// entries of a pixel (each a coalesced access across the block's pixels), so
-// it moves less than the bound counts. One thread per (z, pixel).
+// entries of a pixel (each a coalesced access across the warp's pixels
+// wherever neighbours pick the same candidate), so it moves less than the
+// bound counts. What is left is the rounds' arithmetic and the latency of
+// one wave of blocks (a launch, the gauge loads, a barrier, the value loads).
 //
 // Rounding: as the table combines, round-to-nearest intrinsics and no FMA
 // contraction: bitwise equal to the plain version.
@@ -28,58 +45,106 @@ namespace {
 
 using p2i::kMaxK;
 
-__global__ void combine_dense_kernel(const float* __restrict__ gd2,
-                                     const float* __restrict__ cvals,
-                                     const int* __restrict__ sel,
-                                     const float* __restrict__ fd2,
-                                     float* __restrict__ out, int D, int HW,
-                                     int k, int kf, float rho, float tau,
-                                     int rho_is_2) {
-  extern __shared__ unsigned char smem_raw[];
-  const int ncand = kf * k;
-  const int z = blockIdx.y;
-  float* s_fd2 = reinterpret_cast<float*>(smem_raw);  // (ncand,) row z of fd2
-  int* s_sel = reinterpret_cast<int*>(s_fd2 + ncand);  // (kf,) row z of sel
-  for (int i = threadIdx.x; i < ncand; i += blockDim.x) s_fd2[i] = fd2[z * ncand + i];
-  for (int i = threadIdx.x; i < kf; i += blockDim.x) s_sel[i] = sel[z * kf + i];
-  __syncthreads();
+constexpr int kLanes = 32;    // pixels a block
+constexpr int kMaxWarps = 16;  // warps a block at most: ceil(D / span)
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-
+// K, KF: k and kf at compile time (4, 5: D=16, k=4), or 0 for run time.
+template <int K, int KF>
+__global__ void __launch_bounds__(kLanes * kMaxWarps)
+combine_dense_kernel(const float* __restrict__ gd2, const float* __restrict__ cvals,
+                     const int* __restrict__ sel, const float* __restrict__ vals,
+                     const int* __restrict__ vmap, float* __restrict__ out, int D,
+                     int HW, int k, int kf, int nv, int span, float rho, float tau,
+                     int rho_is_2) {
+  extern __shared__ float smem[];
+  float* s_dist = smem;                               // (nv*k, kLanes)
+  float* s_vals = s_dist + nv * k * kLanes;           // (nv,)
+  int* s_vmap = reinterpret_cast<int*>(s_vals + nv);  // (D, kf)
+  int* s_sel = s_vmap + D * kf;                       // (D, kf)
+  const int p = blockIdx.x * kLanes + threadIdx.x;
+  const bool live = p < HW;
+  // the pixel's gauge distances are in flight while the frame tables load
   float g2[kMaxK];
   int gs[kMaxK];
 #pragma unroll
   for (int s = 0; s < kMaxK; ++s) {
-    g2[s] = (s < k) ? gd2[s * HW + p] : 0.0f;
+    g2[s] = (live && s < k) ? gd2[s * HW + p] : 0.0f;
     gs[s] = s;
   }
-  float wr[kMaxK];
-  int off[kMaxK];
-  const float denom = p2i::select_candidates(g2, gs, s_fd2, s_sel, /*G=*/k, k, kf,
-                                             rho, tau, rho_is_2, wr, off);
-
-  float acc = 0.0f;
-#pragma unroll
-  for (int r = 0; r < kMaxK; ++r) {
-    if (r < k) {
-      const float v = __ldg(cvals + static_cast<size_t>(off[r]) * HW + p);
-      acc = __fadd_rn(acc, __fmul_rn(wr[r], v));
-    }
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  const int nthreads = blockDim.y * kLanes;
+  for (int i = tid; i < nv; i += nthreads) s_vals[i] = vals[i];
+  for (int i = tid; i < D * kf; i += nthreads) {
+    s_vmap[i] = vmap[i];
+    s_sel[i] = sel[i];
   }
-  out[static_cast<size_t>(z) * HW + p] = __fdiv_rn(acc, denom);
+  __syncthreads();
+  float* t = s_dist + threadIdx.x;
+  p2i::distance_table(g2, s_vals, nv, k, t, kLanes, threadIdx.y, blockDim.y);
+  __syncthreads();
+  if (!live) return;
+
+  auto select = [&](int z, float(&wr)[kMaxK], int(&off)[kMaxK]) {
+    return p2i::select_from_table<K, KF>(t, kLanes, s_vmap + z * kf, gs, s_sel + z * kf,
+                                         /*G=*/k, k, kf, rho, tau, rho_is_2, wr, off);
+  };
+  auto combine = [&](const float(&wr)[kMaxK], const float(&v)[kMaxK], float denom) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kMaxK; ++r) {
+      if (r < k) acc = __fadd_rn(acc, __fmul_rn(wr[r], v[r]));
+    }
+    return __fdiv_rn(acc, denom);
+  };
+  // frames in pairs: both selections first, then the 2k value loads at once
+  const int z0 = threadIdx.y * span;
+  const int z1 = min(D, z0 + span);
+  for (int z = z0; z < z1; z += 2) {
+    const bool two = z + 1 < z1;
+    float wa[kMaxK], wb[kMaxK], va[kMaxK], vb[kMaxK];
+    int oa[kMaxK], ob[kMaxK];
+    const float da = select(z, wa, oa);
+    float db = 1.0f;
+    if (two) db = select(z + 1, wb, ob);
+#pragma unroll
+    for (int r = 0; r < kMaxK; ++r) {
+      va[r] = vb[r] = 0.0f;
+      if (r < k) {
+        va[r] = __ldg(cvals + static_cast<size_t>(oa[r]) * HW + p);
+        if (two) vb[r] = __ldg(cvals + static_cast<size_t>(ob[r]) * HW + p);
+      }
+    }
+    out[static_cast<size_t>(z) * HW + p] = combine(wa, va, da);
+    if (two) out[static_cast<size_t>(z + 1) * HW + p] = combine(wb, vb, db);
+  }
 }
 
 }  // namespace
 
+// vals (nv,), vmap (D, kf): distinct_frame_table; span: frames a warp walks.
+// Returns a cudaError_t.
 extern "C" int p2i_combine_dense(const float* gd2, const float* cvals,
-                                 const int* sel, const float* fd2, float* out,
-                                 int D, int HW, int k, int kf, float rho,
-                                 float tau, int rho_is_2, void* stream) {
-  const int threads = 128;
-  dim3 grid((HW + threads - 1) / threads, D);
-  const size_t smem = static_cast<size_t>(kf) * k * sizeof(float) + kf * sizeof(int);
-  combine_dense_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      gd2, cvals, sel, fd2, out, D, HW, k, kf, rho, tau, rho_is_2);
+                                 const int* sel, const float* vals, const int* vmap,
+                                 float* out, int D, int HW, int k, int kf, int nv,
+                                 int span, float rho, float tau, int rho_is_2,
+                                 void* stream) {
+  const int warps = span > 0 ? (D + span - 1) / span : 0;
+  if (D < 1 || HW < 1 || k < 1 || k > kMaxK || kf < 1 || nv < 1 ||
+      kf * k > p2i::kMaxCand || warps < 1 || warps > kMaxWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the pixels' distance tables, the distinct values, the map, the frames
+  const size_t smem =
+      (static_cast<size_t>(nv) * k * kLanes + nv + 2 * static_cast<size_t>(D) * kf) * 4;
+  auto kernel = k == 4 && kf == 5 ? combine_dense_kernel<4, 5> : combine_dense_kernel<0, 0>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid((HW + kLanes - 1) / kLanes);
+  dim3 block(kLanes, warps);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      gd2, cvals, sel, vals, vmap, out, D, HW, k, kf, nv, span, rho, tau, rho_is_2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -215,10 +215,13 @@ __device__ __forceinline__ float select_candidates(
 // selections read; the same float inputs give the same bits, so selecting
 // through it equals select_candidates bit for bit. stride: the table's
 // pitch, so that neighbouring threads' tables interleave in shared memory.
+// j0, jstep: the rows this thread fills, j0, j0 + jstep, ... (where several
+// threads of one pixel share its table, each fills its share).
 __device__ __forceinline__ void distance_table(const float (&g2)[kMaxK],
                                                const float* __restrict__ s_vals,
-                                               int nv, int k, float* t, int stride) {
-  for (int j = 0; j < nv; ++j) {
+                                               int nv, int k, float* t, int stride,
+                                               int j0 = 0, int jstep = 1) {
+  for (int j = j0; j < nv; j += jstep) {
     const float v = s_vals[j];
 #pragma unroll
     for (int s = 0; s < kMaxK; ++s) {

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "p2i_gauge_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p2i_combine_table": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
     "p2i_combine_table_bwd": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    "p2i_combine_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    "p2i_combine_dense": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _P],
     "p2i_combine_table_multi": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _I, _P],
     "p2i_combine_table_multi_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P],

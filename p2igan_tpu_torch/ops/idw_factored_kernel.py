@@ -631,24 +631,54 @@ def combine_dense_reference(gd2_t, cvals_t, k: int, rho: float = 2.0,
     return _factored_combine_xla(gd2_t.t(), cvals_t.t(), dz2, k, rho, tau)
 
 
-def _combine_dense_cuda(gd2_t, cvals_t, k, rho, tau):
+DENSE_LANES = 32      # csrc/combine_dense.cu kLanes: pixels a block, a warp's lanes
+DENSE_MAX_WARPS = 16  # csrc/combine_dense.cu kMaxWarps: warps a block at most
+# frames a warp of combine_dense walks (the block: ceil(D / span) warps): the
+# fastest of 1, 2, 4, 8 and 16 at the full-width window on the H100
+# (``scripts/time_combine_dense.py --spans``, PERF.md)
+DENSE_SPAN = 2
+
+
+@functools.lru_cache(maxsize=16)
+def dense_plan(D: int, k: int, device, span: int = DENSE_SPAN):
+    """(sel, vals, vmap, kf, nv, span) of :func:`combine_dense` on ``device``:
+    the pruned frames, the distinct squared z-distances and their map
+    (``distinct_frame_table``), and the frames a warp walks, ``span`` or more
+    where D needs it to keep a block within ``DENSE_MAX_WARPS`` warps. Raises
+    when the kf*k candidates exceed the taken mask, or when a block's 32
+    distance tables and frame tables exceed what a block may hold."""
+    name = "combine_dense"
+    sel, _, kf = _frame_table(name, D, k, device)
+    vals, vmap = distinct_frame_table(D, k, str(device))
+    nv = vals.shape[0]
+    smem = 4 * (nv * k * DENSE_LANES + nv + 2 * D * kf)
+    if smem > cuda_lib.MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: nv*k={nv * k} distances a pixel need {smem} bytes of "
+                         f"shared memory, beyond the {cuda_lib.MAX_SHARED_BYTES} a block "
+                         f"may hold")
+    return sel, vals, vmap, kf, nv, max(span, -(-D // DENSE_MAX_WARPS))
+
+
+def _combine_dense_cuda(gd2_t, cvals_t, k, rho, tau, span=DENSE_SPAN):
     name = "combine_dense"
     cuda_lib.require_cuda(name, gd2_t, cvals_t)
-    HW = gd2_t.shape[-1]
-    if (gd2_t.shape != (k, HW) or cvals_t.dim() != 2 or cvals_t.shape[1] != HW
-            or cvals_t.shape[0] % k or cvals_t.shape[0] == 0):
-        raise ValueError(f"{name}: gd2 must be (k={k}, HW) and cvals (D*k, HW), "
-                         f"got {tuple(gd2_t.shape)} {tuple(cvals_t.shape)}")
-    if not 1 <= k <= MAX_K or HW == 0:
-        raise ValueError(f"{name}: unsupported k={k}, HW={HW}")
-    D = cvals_t.shape[0] // k
-    sel, fd2, kf = _frame_table(name, D, k, gd2_t.device)
-    out = torch.empty((D, HW), device=gd2_t.device, dtype=torch.float32)
-    with torch.cuda.device(gd2_t.device):
-        rc = cuda_lib.library().p2i_combine_dense(
-            gd2_t.data_ptr(), cvals_t.data_ptr(), sel.data_ptr(), fd2.data_ptr(),
-            out.data_ptr(), D, HW, k, kf, float(rho), float(tau),
-            int(abs(rho - 2.0) < 1e-6), cuda_lib.stream_of(gd2_t))
+    HW, rows = gd2_t.shape[-1], cvals_t.shape[0]
+    if (not 1 <= k <= MAX_K or HW == 0 or gd2_t.shape != (k, HW) or cvals_t.dim() != 2
+            or cvals_t.shape[1] != HW or rows % k or rows == 0):
+        raise ValueError(f"{name}: gd2 must be (k={k}, HW) and cvals (D*k, HW) with "
+                         f"1 <= k <= {MAX_K}, HW > 0, got {tuple(gd2_t.shape)} "
+                         f"{tuple(cvals_t.shape)}")
+    D, dev = rows // k, gd2_t.device
+    sel, vals, vmap, kf, nv, span = dense_plan(D, k, dev, span)
+    out = torch.empty((D, HW), device=dev, dtype=torch.float32)
+    args = (gd2_t.data_ptr(), cvals_t.data_ptr(), sel.data_ptr(), vals.data_ptr(),
+            vmap.data_ptr(), out.data_ptr(), D, HW, k, kf, nv, span, float(rho),
+            float(tau), int(abs(rho - 2.0) < 1e-6), cuda_lib.stream_of(gd2_t))
+    if dev.index == torch.cuda.current_device():
+        rc = cuda_lib.library().p2i_combine_dense(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = cuda_lib.library().p2i_combine_dense(*args)
     cuda_lib.check(rc, name)
     combine_dense.launches += 1
     return out
@@ -686,8 +716,13 @@ def combine_dense(gd2_t: torch.Tensor, cvals_t: torch.Tensor, k: int,
                   rho: float = 2.0, tau: float = 0.05) -> torch.Tensor:
     """(D, HW) IDW combine of one window from gd2_t (k, HW) and the dense
     frame-major candidate values cvals_t (D*k, HW) (row f*k + s: frame f at
-    the pixel's s-th gauge). Differentiable in ``cvals_t``."""
-    return _CombineDense.apply(gd2_t, cvals_t, k, rho, tau)
+    the pixel's s-th gauge). Differentiable in ``cvals_t``; where no input
+    needs a gradient the call skips the autograd node (the same output)."""
+    if torch.is_grad_enabled() and (gd2_t.requires_grad or cvals_t.requires_grad):
+        return _CombineDense.apply(gd2_t, cvals_t, k, rho, tau)
+    if gd2_t.device.type == "cpu":
+        return combine_dense_reference(gd2_t, cvals_t, k, rho, tau)
+    return _combine_dense_cuda(gd2_t, cvals_t, k, rho, tau)
 
 
 combine_dense.launches = 0

@@ -486,17 +486,20 @@ def test_combine_table_bwd_non_finite_cotangent(dev):
 
 
 @pytest.mark.parametrize("kind", ["79", "grid", "2", "empty"])
-@pytest.mark.parametrize("D,k", [(16, 4), (4, 4), (1, 4), (16, 3)])
-def test_combine_dense_kernel_bitwise(dev, kind, D, k):
+@pytest.mark.parametrize("D,k", [(16, 4), (4, 4), (1, 4), (16, 3), (5, 4), (13, 4), (16, 1)])
+@pytest.mark.parametrize("H,W", [(24, 40), (17, 29)])
+def test_combine_dense_kernel_bitwise(dev, kind, D, k, H, W):
     """Kernel #7 (through idw_3d_factored) against its plain version and the
-    CPU path: bitwise; its gradient (autograd of the plain version on the
-    card) reaches the field and equals the CPU path's within 1e-5 x max."""
+    CPU path: bitwise, and across two calls; its gradient (autograd of the
+    plain version on the card) reaches the field and equals the CPU path's
+    within 1e-5 x max. D = 5 and 13 end a warp's span of frames short; 17 x
+    29 pixels fill no whole block."""
     from p2igan_tpu_torch.ops.idw import factored_prepare, idw_3d_factored
 
     rng = np.random.default_rng(3)
-    mask = torch.from_numpy(_mask(kind, 24, 40, rng))
-    values = torch.from_numpy(rng.normal(size=(D, 24, 40)).astype(np.float32))
-    cot = torch.from_numpy(rng.normal(size=(D, 24, 40)).astype(np.float32))
+    mask = torch.from_numpy(_mask(kind, H, W, rng))
+    values = torch.from_numpy(rng.normal(size=(D, H, W)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(D, H, W)).astype(np.float32))
     outs, grads = {}, {}
     for d in ("cpu", dev):
         field = values.to(d).detach().requires_grad_(True)
@@ -514,8 +517,10 @@ def test_combine_dense_kernel_bitwise(dev, kind, D, k):
         .reshape(D * k, -1).contiguous()
     gd2_t = gd2.t().contiguous()
     got = K.combine_dense(gd2_t, cvals_t, k)
+    again = K.combine_dense(gd2_t, cvals_t, k)
     want = K.combine_dense_reference(gd2_t, cvals_t, k)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_sti_wrappers_validate(dev):
