@@ -25,7 +25,13 @@
      decode_normalize_mask
      ((12, 16, 128, 128, 1) uint8 with a (12, 1, 128, 128, 1) mask; bitwise
      against the numpy decode; a call and the device time, each beside the
-     elementwise chain's).
+     elementwise chain's);
+   - the metric suite (``metrics/metric.py``: PyTorch calls, no kernel of
+     the port) on one full-width validation batch (12, 16, 128, 128, 1)
+     whose values cross every threshold: the card's state against the
+     port's CPU suite on the same tensors (counts exactly, every other leaf
+     within rtol 1e-5), an update under the sync debug mode "error" (it
+     waits for nothing), and the device ms of one update.
 3. Serves two 64-frame 128x128 fake events through ``scripts/infer_torch.py``
    (seeded full-width generator saved as a reference-layout .pt, stride 16,
    overlap 12, window batch 8) and checks the output store, that it equals
@@ -43,7 +49,13 @@
    steps, then 10 timed steps; checks finite losses, ``latest.ckpt``, a
    resume that continues (its last 4 steps profiled: idle share, the share of
    #2 + #4 in the kernel time), and that the run launched every kernel of the
-   training path. Prints GAN steps/s with the card's name and power limit.
+   training path. Both runs set ``train.eval_metrics``: each logs every key
+   of the metric suite as a finite val/<key> and writes its epoch's example
+   images (one train PNG and one for each of the first five validation
+   batches, four here, each 2 x 128 rows by 16 x 128 columns of RGB); then the validation pass timed with the suite and
+   without it (on, off, off, on). Every training run below also writes the
+   example images, and its exact launch counts include their forwards.
+   Prints GAN steps/s with the card's name and power limit.
 6. p2igan on per-sample ``sti`` masks (the shipped eval and GAN configs with
    ``mask.type`` set to ``sti``; their ``block_sizes: [10]`` gives 169 gauges a
    mask in 256 gauge slots), where nothing is hoisted and every sample selects
@@ -158,7 +170,8 @@
      through ``scripts/train_torch.py`` and a profiled resume (#9's share);
    - the repeat phase: two 5-step runs each of the stis, sti and stin GANs
      and of the generic IDW at P <= 4096 (sti masks, idw_factored off) end
-     with bitwise-equal generator, critic and optimizer states; a third run
+     with bitwise-equal generator, critic and optimizer states and log
+     bitwise-equal val/* values (``train.eval_metrics`` on); a third run
      of each under ``torch.use_deterministic_algorithms(True,
      warn_only=True)`` prints every op PyTorch names as having no
      deterministic version; then the stis GAN step with cuDNN's
@@ -199,6 +212,7 @@ from p2igan_tpu_torch.data.stores import store_compressor
 from p2igan_tpu_torch.inference.driver import (SlidingWindowReconstructor,
                                                load_generator, set_precision_policy)
 from p2igan_tpu_torch.losses import reconstruction_loss
+from p2igan_tpu_torch.metrics import MetricConfig, RainfallMetricSuite
 from p2igan_tpu_torch.models import (DKGenerator, P2IGenerator, SimpleGenerator,
                                      STDKGenerator)
 from p2igan_tpu_torch.ops import cuda_lib, idw_factored_kernel, layers
@@ -232,6 +246,7 @@ from p2igan_tpu_torch.ops.wendland import build_phi_space
 from p2igan_tpu_torch.training import trainer as trainer_module
 from p2igan_tpu_torch.training.checkpoint import load_checkpoint_raw
 from p2igan_tpu_torch.training.trainer import device_busy_us
+from p2igan_tpu_torch.utils.tracking import get_tracker
 
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "p2igan_tpu_torch" / "config"
@@ -332,6 +347,12 @@ LAUNCH_PATH = {"combine_table": "p2igan sti training",
                "enc0_conv3d_leaky": "simple serving",
                "conv3d_cout1_sigmoid": "simple serving"}
 SIMPLE_MODEL = {"name": "simple", "in_channels": 1, "base_channels": BASE}
+# the metric suite's default thresholds (mm/h) and FSS scales, and its state
+# leaves that are counts
+THRESHOLDS, SCALES = MetricConfig().thresholds, MetricConfig().scales
+COUNT_LEAVES = ("n_obs", "ssim_n", "hits", "misses", "false", "correct", "counts")
+# example images an epoch: one of the train loader, one a validation batch up to 5
+VAL_EXAMPLES = 5
 # end-to-end rates of this run by path (serving events/s, training steps/s),
 # printed side by side at the end
 RATES = {}
@@ -1353,9 +1374,14 @@ def write_train_tree(tmp: Path, config: Path = TRAIN_CONFIG) -> dict:
 
 
 def train(tmp: Path, card: str, dev) -> dict:
-    """The GAN through scripts/train_torch.py, with device_decode off and on."""
+    """The GAN through scripts/train_torch.py, with device_decode off and on,
+    and with ``train.eval_metrics``: the validation pass runs the metric
+    suite on the card, the epoch writes its example images
+    (``check_evaluation``); then the validation pass timed with the suite and
+    without."""
     train_torch = load_script("train_torch")
     base_cfg = write_train_tree(tmp)
+    base_cfg["train"]["eval_metrics"] = True
     required = ("gauge_topk", "combine_table_multi", "combine_table_multi_bwd",
                 "maxpool2_duplicate")
     launches = {}
@@ -1389,6 +1415,9 @@ def train(tmp: Path, card: str, dev) -> dict:
             fail(f"log points {trainer.log_times}")
         sps = (s1 - s0) / (t_1 - t_0)
         RATES["p2igan stis GAN" + (" device_decode" if decode else "")] = sps
+        check_evaluation(trainer, f"GAN training (device_decode={decode})")
+        if not decode:
+            time_validation(trainer, card)
         print(f"GAN training (device_decode={decode}): {s1} steps at batch "
               f"{TRAIN_BATCH}, base {BASE}, T={LENGTH}, {H}x{W} in {seconds:.2f} s "
               f"(run incl. set-up and validation); {sps:.3f} GAN steps/s over "
@@ -1533,16 +1562,17 @@ def train_repeat(tmp: Path, card: str, dev) -> None:
     at batch 12, same seed and data, through scripts/train_torch.py) end with
     bitwise-equal generator, critic and optimizer states in latest.ckpt: the
     stis GAN, the sti GAN, the stin GAN (device_decode) and the generic IDW at
-    P <= 4096 on sti masks (#8's range, #10). First one more run of each under
+    P <= 4096 on sti masks (#8's range, #10), and log bitwise-equal val/*
+    values (``train.eval_metrics`` on). First one more run of each under
     ``torch.use_deterministic_algorithms(True, warn_only=True)``: every op
     PyTorch flags as having no deterministic version on the card is
     printed."""
     train_torch = load_script("train_torch")
     for label, (cfg, context, required) in repeat_configs(tmp).items():
         named = set()
-        cfg["train"].update(iterations=REPEAT_STEPS, log_step=REPEAT_STEPS)
+        cfg["train"].update(iterations=REPEAT_STEPS, log_step=REPEAT_STEPS, eval_metrics=True)
         tag = "repeat_" + label.replace(" ", "_").replace("<=", "le")
-        payloads = []
+        payloads, val_logs = [], []
         t0 = time.perf_counter()
         for run in ("warn", "a", "b"):
             cfg["save_dir"] = str(tmp / f"weights_{tag}_{run}")
@@ -1570,6 +1600,7 @@ def train_repeat(tmp: Path, card: str, dev) -> None:
                           if "deterministic" in str(w.message)}
             else:
                 payloads.append(load_checkpoint_raw(Path(cfg["save_dir"]) / "latest.ckpt"))
+                val_logs.append(read_logged(get_tracker().run_dir))
         print(f"repeat {label}: under torch.use_deterministic_algorithms(True, "
               f"warn_only=True) PyTorch flagged {len(named)} op(s)"
               + "".join(f"\n  {msg}" for msg in sorted(named)))
@@ -1578,9 +1609,12 @@ def train_repeat(tmp: Path, card: str, dev) -> None:
         if diff:
             fail(f"{label}: two training runs differ in {len(diff)} of {n} checkpoint "
                  f"entries (path, max abs difference): {diff[:8]}")
+        if not val_logs[0] or val_logs[0] != val_logs[1]:
+            fail(f"{label}: the two runs logged validation metrics {val_logs}")
         print(f"repeat {label}: two {REPEAT_STEPS}-step runs at batch {TRAIN_BATCH} end "
               f"with bitwise-equal checkpoints (all {n} entries: generator, critic, both "
-              f"optimizers); three runs {time.perf_counter() - t0:.1f} s")
+              f"optimizers) and log bitwise-equal val/* values (all {len(val_logs[0])} "
+              f"keys, eval_metrics on); three runs {time.perf_counter() - t0:.1f} s")
 
 
 # -- p2igan on per-sample sti masks --------------------------------------------
@@ -1656,16 +1690,17 @@ def train_sti(tmp: Path, card: str, dev, decode: bool) -> tuple:
     """The hinge GAN on p2igan_gan_baseline.json with sti masks (batch 12, a
     mask a sample) through scripts/train_torch.py: 15 steps, every one with
     its own gauge top-k (#1, one launch for the 12 masks), combine (#5) and
-    combine backward (#6); the validation forwards add #1 and #5. With
+    combine backward (#6); the validation and example forwards add #1 and
+    #5. With
     ``decode`` the raw pipeline ships uint8 frames and one mask frame a sample
     through #11. Then the profiled resume: idle share and the four kernels'
     share of the device time."""
     cfg = sti_config(write_train_tree(tmp, STI_TRAIN_CONFIG))
     cfg["data"]["train"]["device_decode"] = decode
     label = "p2igan sti GAN" + (" device_decode" if decode else "")
-    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {
-        "gauge_topk": steps + val, "combine_table": steps + val,
-        "combine_table_bwd": steps, "maxpool2_duplicate": 3 * (steps + val),
+    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, fwd: {
+        "gauge_topk": steps + fwd, "combine_table": steps + fwd,
+        "combine_table_bwd": steps, "maxpool2_duplicate": 3 * (steps + fwd),
         **({"decode_normalize_mask": None} if decode else {})})
     print_kernel_share(tmp / f"profile_{label.replace(' ', '_')}", label, STI_KERNEL_ROWS,
                        "#1 + #5 + #6")
@@ -2101,14 +2136,15 @@ def train_stin(tmp: Path, card: str, dev) -> tuple:
     """The hinge GAN on p2igan_gan_baseline.json with stin masks (batch 12, a
     mask a sample, 67968 points) and ``device_decode`` through
     scripts/train_torch.py: #9 once a step with its selection and once a
-    validation batch without, the scatter backward (#10) once a step, #11 with
-    the whole (T, H, W) mask a sample; then the profiled resume."""
+    validation batch or example image without, the scatter backward (#10)
+    once a step, #11 with the whole (T, H, W) mask a sample; then the
+    profiled resume."""
     cfg = frame_config(write_train_tree(tmp, STI_TRAIN_CONFIG), "stin")
     cfg["data"]["train"]["device_decode"] = True
     label = "p2igan stin GAN device_decode"
-    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {
-        "idw_knn_chunked": steps + val, "scatter_selection": steps,
-        "maxpool2_duplicate": 3 * (steps + val), "decode_normalize_mask": None})
+    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, fwd: {
+        "idw_knn_chunked": steps + fwd, "scatter_selection": steps,
+        "maxpool2_duplicate": 3 * (steps + fwd), "decode_normalize_mask": None})
     summary = json.loads((tmp / f"profile_{label.replace(' ', '_')}" / "summary.json")
                          .read_text())
     total = sum(summary["kernel_ms"].values())
@@ -2288,8 +2324,10 @@ def host_loader_rate(tmp: Path, cfg: dict, label: str) -> float:
 def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> tuple:
     """One family through scripts/train_torch.py from the config ``cfg`` (a
     shipped one pointed at the fake tree): 5 warm-up + 10 timed steps at batch
-    12; ``expected(steps, val_batches)`` gives the kernel launches the run
-    must show (None: at least one), every other kernel none. Every parameter of the generator (and
+    12; ``expected(steps, forwards)`` gives the kernel launches the run must
+    show (None: at least one), every other kernel none; ``forwards`` are the
+    forwards without gradient: the validation batches and the epoch's example
+    images (one train batch, up to five validation batches). Every parameter of the generator (and
     of the critic under ``use_gan``) ends with a finite non-zero gradient, and
     every BatchNorm running statistic has moved. Then a resume (which must
     restore every weight and buffer) for 6 more steps, the last 4 under the
@@ -2317,7 +2355,9 @@ def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> 
         fail(f"{label} trained {trainer.global_step} steps, losses {losses}")
     if (trainer.discriminator is not None) != use_gan:
         fail(f"{label}: discriminator {trainer.discriminator}")
-    want = {**dict.fromkeys(launches, 0), **expected(steps, len(trainer.val_loader))}
+    n_val = len(trainer.val_loader)
+    forwards = n_val + 1 + min(VAL_EXAMPLES, n_val)
+    want = {**dict.fromkeys(launches, 0), **expected(steps, forwards)}
     # None: launched, but how often is not fixed (the prefetch thread runs ahead)
     want = {k: (launches[k] or None) if v is None else v for k, v in want.items()}
     if launches != want:
@@ -2374,13 +2414,13 @@ def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> 
 
 def train_rec(tmp: Path, card: str, dev, model: str) -> tuple:
     """dk or stdk on the shipped gauge config: reconstruction loss only
-    (use_gan 0), AdamNoMu; the tail forward runs once a step and a validation
-    batch, its backward once a step."""
+    (use_gan 0), AdamNoMu; the tail forward runs once a step, a validation
+    batch and an example image, its backward once a step."""
     cfg = write_train_tree(tmp, DK_FAMILY[model][1])
     if cfg["loss"]["use_gan"] or cfg["model"]["name"] != model:
         fail(f"{DK_FAMILY[model][1].name} is no longer a rec-loss {model} config")
-    launches, sps = train_family(tmp, card, dev, model, cfg, lambda steps, val: {
-        "mlp_tail_fused": steps + val, "mlp_tail_bwd": steps})
+    launches, sps = train_family(tmp, card, dev, model, cfg, lambda steps, fwd: {
+        "mlp_tail_fused": steps + fwd, "mlp_tail_bwd": steps})
     summary = json.loads((tmp / f"profile_{model}" / "summary.json").read_text())
     total = sum(summary["kernel_ms"].values())
     tail_bwd = sum(ms for key, ms in summary["kernel_ms"].items()
@@ -2691,12 +2731,148 @@ def train_simple(tmp: Path, card: str, dev, use_gan: bool) -> tuple:
     cfg["model"] = dict(SIMPLE_MODEL)
     cfg["loss"]["use_gan"] = int(use_gan)
     label = "simple GAN" if use_gan else "simple rec-loss"
-    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, val: {})
+    launches, sps = train_family(tmp, card, dev, label, cfg, lambda steps, fwd: {})
     flops = simple_step_flops(use_gan)
     print(f"{label}: a step's convolutions are {flops / 1e12:.3f} TFLOP, "
           f"{flops / PEAK_FLOPS * 1e3:.2f} ms at the float32 peak; measured "
           f"{1e3 / sps:.2f} ms a step: {flops / PEAK_FLOPS * sps:.3f} of the bound's rate")
     return launches, sps
+
+
+# -- the online evaluation path -------------------------------------------------
+
+def rain_pair(rng, shape) -> tuple:
+    """Normalized (preds, target) in [0, 60] (the metric transform maps them to
+    0.036-202 mm/h, so every threshold splits them); a value whose transform
+    lies within 1e-5 of a threshold is drawn again, so the card's and the
+    CPU's ``pow`` cannot flip a count."""
+    def clear(x):
+        while True:
+            mm = 10.0 ** (x.astype(np.float64) * 0.0625) * 0.036
+            near = np.zeros(x.shape, bool)
+            for thr in THRESHOLDS:
+                near |= np.abs(mm / thr - 1.0) < 1e-5
+            if not near.any():
+                return x
+            x[near] = rng.uniform(0.0, 60.0, int(near.sum())).astype(np.float32)
+
+    target = rng.uniform(0.0, 60.0, shape).astype(np.float32)
+    preds = np.clip(target + rng.normal(0.0, 6.0, shape), 0.0, 60.0).astype(np.float32)
+    return clear(preds), clear(target)
+
+
+def check_metric_suite(dev, card: str) -> None:
+    """The metric suite on one full-width validation batch (12, 16, 128, 128,
+    1) whose values cross every threshold: the card's suite against the
+    port's CPU suite on the same tensors (counts equal, every other leaf
+    within rtol 1e-5); an update waits for nothing (it runs under the sync
+    debug mode "error"); the device ms of one update, beside the bytes bound
+    of reading its two inputs once."""
+    rng = np.random.default_rng(SEED)
+    preds, target = rain_pair(rng, (TRAIN_BATCH, LENGTH, H, W, 1))
+    pd, td = torch.from_numpy(preds).to(dev), torch.from_numpy(target).to(dev)
+    on_card, on_cpu = RainfallMetricSuite(device=dev), RainfallMetricSuite(device="cpu")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        on_card.update(pd, td)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    on_cpu.update(torch.from_numpy(preds), torch.from_numpy(target))
+    worst = 0.0
+    for part_card, part_cpu in zip(on_card.state, on_cpu.state):
+        for key, val in part_card.items():
+            got, want = val.cpu().double(), part_cpu[key].double()
+            if key in COUNT_LEAVES:
+                if not torch.equal(got, want):
+                    fail(f"metric suite: {key} {got.tolist()} on the card, "
+                         f"{want.tolist()} on the CPU")
+                continue
+            rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                fail(f"metric suite: {key} on the card is {rel:.3g} off the CPU's (rtol 1e-5)")
+    cat = on_cpu.state[1]
+    if not all(bool((cat[key] > 0).all()) for key in ("hits", "misses", "false", "correct")):
+        fail(f"the metric suite's inputs leave a count empty: {cat}")
+    ms = cuda_ms(lambda: on_card.update(pd, td), reps=10)
+    t0 = time.perf_counter()
+    on_card.update(pd, td)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    bytes_ms = 2 * pd.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+    print(f"metric suite on ({TRAIN_BATCH}, {LENGTH}, {H}, {W}, 1), {len(THRESHOLDS)} "
+          f"thresholds x {len(SCALES)} scales: the card's state equals the CPU's (counts "
+          f"exactly, the rest within rtol {worst:.3g}); every count non-empty (hits "
+          f"{cat['hits'].tolist()}); an update waits for nothing; {ms:.4f} ms of device "
+          f"time an update (host enqueue {host_ms:.4f} ms), the bytes bound "
+          f"{bytes_ms:.5f} ms, on {card}")
+
+
+def read_logged(run_dir: Path, prefix: str = "val/") -> dict:
+    """{key: [value, ...]} of a file-tracker run's metrics under ``prefix``,
+    each value as ``float.hex`` (or the raw token of a non-finite one)."""
+    out = {}
+    for line in (run_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["key"].startswith(prefix):
+            val = rec["value"]
+            out.setdefault(rec["key"], []).append(rec.get("raw") if val is None
+                                                  else float(val).hex())
+    return out
+
+
+def check_evaluation(trainer, label: str) -> dict:
+    """After a training run with ``train.eval_metrics``: the validation pass
+    logged every key of the metric suite as val/<key>, each finite, and the
+    epoch wrote its example images (one of the train loader, one for each
+    of the first five validation batches: four here), each 2 x 128 rows by
+    16 x 128 columns of RGB."""
+    from PIL import Image
+
+    logged = read_logged(get_tracker().run_dir)
+    want = ({"val/mae", "val/rmse", "val/ssim", "val/loss"}
+            | {f"val/cat_thr{t:.2f}/{m}" for t in THRESHOLDS
+               for m in ("pod", "far", "csi", "hss")}
+            | {f"val/fss_thr{t:.2f}_s{s}" for t in THRESHOLDS for s in SCALES})
+    if set(logged) != want:
+        fail(f"{label}: logged {sorted(set(logged) ^ want)} against the suite's keys")
+    last = {key: float.fromhex(vals[-1]) for key, vals in logged.items()}
+    if not all(np.isfinite(list(last.values()))):
+        fail(f"{label}: a validation metric is not finite: {last}")
+    artifacts = Path(trainer.cfg["save_dir"]) / "artifacts"
+    names = ["train_epoch1_batch0_ex0.png"] + [
+        f"val_epoch1_batch{b}_ex0.png" for b in range(min(VAL_EXAMPLES, len(trainer.val_loader)))]
+    for name in names:
+        if not (artifacts / name).exists():
+            fail(f"{label}: no example image {name} (found "
+                 f"{sorted(p.name for p in artifacts.glob('*.png'))})")
+        with Image.open(artifacts / name) as img:
+            if img.format != "PNG" or img.mode != "RGB" or img.size != (LENGTH * W, 2 * H):
+                fail(f"{label}: {name} is {img.format} {img.mode} {img.size}")
+    print(f"{label}: {len(last)} val/* keys logged and finite (mae {last['val/mae']:.6g}, "
+          f"rmse {last['val/rmse']:.6g}, ssim {last['val/ssim']:.6g}, cat_thr0.50/csi "
+          f"{last['val/cat_thr0.50/csi']:.6g}, fss_thr0.50_s8 "
+          f"{last['val/fss_thr0.50_s8']:.6g}); {len(names)} example PNGs of "
+          f"{2 * H}x{LENGTH * W} RGB")
+    return last
+
+
+def time_validation(trainer, card: str) -> None:
+    """Host ms of one validation pass (the loader's batches, the loss, and
+    with ``eval_metrics`` the predictions and the metric suite), synchronized,
+    with the suite and without, in turns: on, off, off, on."""
+    times = {True: [], False: []}
+    for on in (True, False, False, True):
+        trainer.eval_metrics = on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._evaluate_rec_loss(trainer.val_loader)
+        torch.cuda.synchronize()
+        times[on].append((time.perf_counter() - t0) * 1e3)
+    print(f"validation pass over {len(trainer.val_loader)} batches of {TRAIN_BATCH}: "
+          f"{statistics.mean(times[True]):.2f} ms with eval_metrics ({times[True]}), "
+          f"{statistics.mean(times[False]):.2f} ms without ({times[False]}) on {card}")
 
 
 def profile_report(prof: Path) -> str:
@@ -2752,6 +2928,9 @@ def main() -> int:
     check_gauge_topk_batched(dev)
     time_input_block(dev)
     time_conv_layouts(dev)
+    t0 = time.perf_counter()
+    check_metric_suite(dev, card)
+    print(f"metric suite phase: {time.perf_counter() - t0:.1f} s")
 
     # launches of every kernel, per path driven
     paths = {"idw_3d_factored op": run_idw_3d_factored(dev)}

@@ -123,12 +123,12 @@ def write_gauge_mask(out_path: str | Path, H: int = 128, W: int = 128,
 
 
 def make_fake_benchmark_tree(root: str | Path, H: int = 128, W: int = 128,
-                             T: int = 16, seed: int = 0) -> dict:
-    """Full fake data tree + paths dict for configs."""
+                             T: int = 16, seed: int = 0, h5_events: bool = True) -> dict:
+    """Full fake data tree + paths dict for configs. ``h5_events=False``
+    leaves out the per-event ``.h5`` files (they need h5py); every other
+    store is the same."""
     root = Path(root)
     paths = {
-        "test_events": write_h5_events(root / "test_events", n_events=2, T=T,
-                                       H=H, W=W, seed=seed),
         "test_zarr": write_test_zarr(root / "nimrod_test.zarr", n_events=2,
                                      T=T, H=H, W=W, seed=seed + 1),
         # window length matches the shipped configs' sample_length; events
@@ -140,4 +140,7 @@ def make_fake_benchmark_tree(root: str | Path, H: int = 128, W: int = 128,
         "gauge_mask_test": write_gauge_mask(root / "masks" / "gauge_mask_128_test.txt",
                                             H=H, W=W, seed=seed + 4),
     }
+    if h5_events:
+        paths["test_events"] = write_h5_events(root / "test_events", n_events=2, T=T,
+                                               H=H, W=W, seed=seed)
     return paths

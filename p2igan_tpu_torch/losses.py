@@ -1,10 +1,14 @@
-"""Losses of the GAN training step (PyTorch).
+"""Loss library of the port (PyTorch).
 
-Counterpart of the parts of ``p2igan_tpu/losses.py`` the train step uses
-(reference ``p2igan_bench/modules/losses.py``): the NowcastNet-weighted L1,
-the temperature-softmax KL of temporal differences, and the adversarial
-losses (hinge / nsgan / lsgan). Losses are elementwise reductions and take any
-layout; the training batch is (B, T, H, W, C).
+Counterpart of ``p2igan_tpu/losses.py`` (reference
+``p2igan_bench/modules/losses.py``): the NowcastNet-weighted L1, the
+temperature-softmax KL of temporal differences, spatial pooling,
+temporal-difference matching, the Sobel + Laplacian shock maps, the k1
+combination and the adversarial losses (hinge / nsgan / lsgan). The train
+step uses the weighted L1, the KL and the adversarial losses; the metric
+suite's loss metrics use the rest. Elementwise losses take any layout (the
+training batch is (B, T, H, W, C)); the functions with spatial structure take
+(B, T, H, W).
 """
 
 from __future__ import annotations
@@ -14,6 +18,14 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .ops.convs import max_pool2d, reflect_pad2d
+
+
+def transform(x: torch.Tensor) -> torch.Tensor:
+    """Normalized rainfall -> mm scale (legacy helper, losses.py:51-53); not
+    the metric suite's ``metrics.transform``."""
+    return 0.036 * torch.pow(10.0, (x * 255.0 / 3.0) * 0.0625)
 
 
 def weighted_l1_distance(x_pred: torch.Tensor, x_true: torch.Tensor) -> torch.Tensor:
@@ -58,6 +70,85 @@ def reconstruction_loss(prediction: torch.Tensor, target: torch.Tensor,
     true_prob = softmax_temperature(compute_forward_difference(target), 0.1)
     reg_loss = kl_divergence(pred_prob, true_prob)
     return pool_loss + k1_alpha * reg_loss, {"pool": pool_loss, "reg": reg_loss}
+
+
+class ReconstructionLoss:
+    """Callable wrapper with the reference class's interface; the mask
+    argument is accepted and unused, as there."""
+
+    def __init__(self, k1_alpha: float = 0.0):
+        self.k1_alpha = k1_alpha
+
+    def __call__(self, prediction, target, mask=None):
+        return reconstruction_loss(prediction, target, self.k1_alpha)
+
+
+def spatial_pool(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(k=5, s=4, p=2) over the trailing spatial dims of (B, T, H, W)."""
+    return max_pool2d(x, 5, 4, padding=2)
+
+
+def temporal_difference_matching_loss(pred_diff: torch.Tensor, true_diff: torch.Tensor,
+                                      true: torch.Tensor, beta: float = 1.0,
+                                      eps: float = 1e-6) -> torch.Tensor:
+    """Weighted matching of pooled temporal gradients (losses.py:94-109)."""
+    pred_pool = spatial_pool(pred_diff)
+    true_pool = spatial_pool(true_diff)
+    weight = 1.0 / (1.0 + beta * spatial_pool(true[:, :-1]) + eps)
+    return torch.mean(((pred_pool - true_pool) ** 2) * weight)
+
+
+def _shock_kernels(dtype, device):
+    """The /8 Sobel x and y kernels and the Laplacian, OIHW (1, 1, 3, 3), in
+    the orientation of cross-correlation (as the JAX HWIO kernels)."""
+    kx = torch.tensor([[1, 0, -1], [2, 0, -2], [1, 0, -1]], dtype=torch.float32) / 8.0
+    kl = torch.tensor([[0, 1, 0], [1, -4, 1], [0, 1, 0]], dtype=torch.float32)
+    return tuple(k.reshape(1, 1, 3, 3).to(dtype=dtype, device=device)
+                 for k in (kx, kx.t().contiguous(), kl))
+
+
+def shock_map(x: torch.Tensor, beta: float = 30.0, eps: float = 1e-12) -> torch.Tensor:
+    """Sobel-gradient x tanh(beta * Laplacian) structure map (losses.py:128-137),
+    reflect-padded: (B, T, H, W) -> the same shape."""
+    B, T, H, W = x.shape
+    padded = reflect_pad2d(x.reshape(B * T, 1, H, W), 1)
+    gx, gy, lap = (F.conv2d(padded, k) for k in _shock_kernels(x.dtype, x.device))
+    grad = torch.sqrt(gx * gx + gy * gy + eps)
+    return (torch.tanh(beta * lap) * grad).reshape(B, T, H, W)
+
+
+def shock_map_loss(pred: torch.Tensor, true: torch.Tensor, beta: float = 30.0,
+                   tau: float = 25.0, border_ignore: int = 0, pool: int = 2,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """relu(|shock_true| - |shock_pred|) with optional max-pooling and border
+    crop (losses.py:140-162). ``tau`` is a legacy no-op argument kept for the
+    interface, as in the reference."""
+    del tau
+    if pool > 1:
+        pred = max_pool2d(pred, pool, pool)
+        true = max_pool2d(true, pool, pool)
+    diff = F.relu(torch.abs(shock_map(true, beta, eps)) - torch.abs(shock_map(pred, beta, eps)))
+    if border_ignore > 0:
+        m = border_ignore
+        diff = diff[..., m:-m, m:-m]
+    return diff
+
+
+def k1_loss(pred: torch.Tensor, true: torch.Tensor, temp_alpha: float,
+            k1_alpha: float) -> torch.Tensor:
+    """Weighted L1 + KL + shock-map combination (losses.py:165-189) on
+    (B, T, H, W). Keeps the reference's quirk: the shock term is computed
+    when ``temp_alpha == 0``, and then adds 0 * shock."""
+    pool_loss = weighted_l1_distance(pred, true)
+    reg_loss = torch.zeros((), dtype=pred.dtype, device=pred.device)
+    shock_loss = torch.zeros((), dtype=pred.dtype, device=pred.device)
+    if k1_alpha > 0:
+        pred_prob = softmax_temperature(compute_forward_difference(pred), 0.1)
+        true_prob = softmax_temperature(compute_forward_difference(true), 0.1)
+        reg_loss = kl_divergence(pred_prob, true_prob)
+    if temp_alpha == 0:
+        shock_loss = shock_map_loss(pred, true, beta=0.02, border_ignore=2, pool=1).mean()
+    return pool_loss + k1_alpha * reg_loss + temp_alpha * shock_loss
 
 
 def _bce(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Convolution and resize primitives of the generators (NCHW / NCDHW).
+"""Convolution, pooling, padding and resize primitives (NCHW / NCDHW).
 
-Counterpart of the parts of ``p2igan_tpu/ops/convs.py`` the generators
-use. The JAX package leaves these to XLA outside any Pallas kernel; here they
-go to cuDNN / PyTorch's own kernels the same way.
+Counterpart of ``p2igan_tpu/ops/convs.py``: the generators' convolutions and
+resizes, and the pools and padding of the loss helpers and the metric suite.
+The JAX package leaves these to XLA outside any Pallas kernel; here they go
+to cuDNN / PyTorch's own kernels the same way. The JAX ops take channels-last
+tensors; these take PyTorch's channels-first layouts.
 """
 
 from __future__ import annotations
@@ -20,6 +22,49 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     """x (B, Cin, H, W), weight OIHW (Cout, Cin/groups, kh, kw)."""
     return F.conv2d(x, weight, bias=bias, stride=stride, padding=padding,
                     groups=groups)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+           padding: int = 0, groups: int = 1,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, Cin, L), weight (Cout, Cin/groups, k). The JAX package's
+    ``conv1d`` takes x (B, L, Cin) and a (k, Cin/groups, Cout) kernel =
+    ``weight.permute(2, 1, 0)``."""
+    return F.conv1d(x, weight, bias=bias, stride=stride, padding=padding,
+                    groups=groups)
+
+
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+                     padding: int = 0, bias: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """torch ``ConvTranspose2d`` on x (B, Cin, H, W) with its weight layout
+    (Cin, Cout, kh, kw): output size (H - 1) * s - 2p + k. The JAX package's
+    ``conv_transpose2d`` takes (kh, kw, Cout, Cin) =
+    ``weight.permute(2, 3, 1, 0)``."""
+    return F.conv_transpose2d(x, weight, bias=bias, stride=stride, padding=padding)
+
+
+def max_pool2d(x: torch.Tensor, kernel_size, stride=None,
+               padding=0) -> torch.Tensor:
+    """Max over windows of the last two dims of (N, C, H, W) or (C, H, W);
+    the padding never wins (it is -inf), the output size rounds down."""
+    return F.max_pool2d(x, kernel_size, stride=stride if stride is not None else kernel_size,
+                        padding=padding)
+
+
+def avg_pool2d(x: torch.Tensor, kernel_size, stride=None, padding=0,
+               count_include_pad: bool = True) -> torch.Tensor:
+    """Window means over the last two dims of (N, C, H, W) or (C, H, W): with
+    ``count_include_pad`` (the default) every window divides by k*k, padding
+    counted as zeros; without it, by the window's cells inside the image."""
+    return F.avg_pool2d(x, kernel_size, stride=stride if stride is not None else kernel_size,
+                        padding=padding, count_include_pad=count_include_pad)
+
+
+def reflect_pad2d(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+    """Reflection padding of the last two dims of (N, C, H, W) or (C, H, W)
+    (the JAX op pads H and W of a channels-last tensor)."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 
 @functools.lru_cache(maxsize=32)

@@ -16,13 +16,18 @@ discriminator, their optimizers, the tracker run and the checkpoints:
   ``non_blocking`` copies on a side stream, ``lookahead`` batches ahead; the
   raw (``data.train.device_decode``) pipeline ships uint8 frames and masks and
   decodes them on the device (``ops/decode_mask.py``);
-* ``max_steps`` / ``max_epochs``, validation, ``latest.ckpt`` every epoch and
-  ``best.ckpt`` on a better validation loss, ``load`` for resume, steps/s
-  logging, and an optional ``torch.profiler`` window (``train.profile_dir``).
+* ``max_steps`` / ``max_epochs``, validation (with ``train.eval_metrics``
+  the metric suite accumulates on the device and logs ``val/<key>``),
+  ``latest.ckpt`` every epoch and ``best.ckpt`` on a better validation loss,
+  ``load`` for resume, steps/s logging, and an optional ``torch.profiler``
+  window (``train.profile_dir``);
+* example images every epoch (``_log_examples``: GT | prediction grids under
+  ``save_dir/artifacts``, the ``viz`` config's colour scale), drawn after the
+  epoch's training steps, outside the steps/s window. Unlike the JAX trainer's,
+  they leave the loader's epoch counter as they found it, so a resumed run
+  trains on the same batches as an uninterrupted one.
 
-Not ported: the example images of every epoch (``_log_examples``, which needs
-matplotlib), the validation metric suite (``train.eval_metrics``) and the
-device mesh (one device here).
+Not ported: the device mesh (one device here).
 """
 
 from __future__ import annotations
@@ -70,9 +75,11 @@ class Trainer:
         set_precision_policy()
         self.seed = cfg.get("seed", 42)
         train_cfg = cfg.get("train", {})
-        if train_cfg.get("eval_metrics"):
-            raise NotImplementedError("train.eval_metrics: the metric suite is "
-                                      "not ported yet")
+        self.eval_metrics = bool(train_cfg.get("eval_metrics", False))
+        viz_cfg = cfg.get("viz", {})
+        self.viz_scale = str(viz_cfg.get("scale", "gt_pred")).lower()
+        self.viz_vmin = viz_cfg.get("vmin")
+        self.viz_vmax = viz_cfg.get("vmax")
 
         logging.info("Initializing data module...")
         self.data_module = P2IDataModule(cfg)
@@ -295,6 +302,8 @@ class Trainer:
                 self.tracker.log_metric("train/loss", train_loss, step=self.global_step)
                 logging.info("Epoch %d completed | train_loss=%.4f | global_step=%d",
                              epoch, train_loss, self.global_step)
+                self._log_examples(self.train_loader, prefix="train", epoch=epoch,
+                                   max_batches=1)
                 if self.run_validation and self.val_loader is not None:
                     val_loss = self._evaluate_rec_loss(self.val_loader)
                     self.tracker.log_metric("val/loss", val_loss, step=self.global_step)
@@ -314,6 +323,7 @@ class Trainer:
                     self.tracker.log_artifact(str(best))
                     logging.info("New best model saved at %s (val_loss=%.4f)",
                                  best, self.best_val)
+                self._log_examples(self.val_loader, prefix="val", epoch=epoch)
                 if self.global_step >= self.max_steps:
                     logging.info("Reached max steps (%d). Stopping.", self.max_steps)
                     break
@@ -365,12 +375,59 @@ class Trainer:
         return running["loss"] / denom
 
     def _evaluate_rec_loss(self, loader) -> float:
+        """Mean validation loss; with ``train.eval_metrics`` the metric suite
+        also accumulates every batch's prediction on the device and each of
+        its keys is logged as ``val/<key>``."""
+        if loader is None:
+            return 0.0
+        suite = None
+        if self.eval_metrics:
+            from ..metrics import MetricConfig, RainfallMetricSuite
+
+            suite = RainfallMetricSuite(MetricConfig(), device=self.device)
         total, batches = 0.0, 0
         for batch in loader:
             frames, masked, masks = self._put_batch(batch)
             total += float(self.eval_step(frames, masked, masks))
+            if suite is not None:
+                suite.update(self.predict_fn(masked, masks), frames)
             batches += 1
+        if suite is not None:
+            for key, value in suite.compute().items():
+                self.tracker.log_metric(f"val/{key}", value, step=self.global_step)
         return total / max(1, batches)
+
+    def _log_examples(self, loader, prefix: str, epoch: int, max_batches: int = 5,
+                      samples_per_batch: int = 1) -> None:
+        """Colorized GT | prediction grids with their stats caption
+        (reference train.py:384-466), written as
+        ``save_dir/artifacts/{prefix}_epoch{epoch}_batch{b}_ex{idx}.png`` and
+        logged as artifacts. The loader's epoch counter is restored, so the
+        examples do not move the training data's shuffle and mask stream."""
+        if loader is None:
+            return
+        from ..metrics.plots import example_image
+
+        save_dir = self.save_dir / "artifacts"
+        save_dir.mkdir(parents=True, exist_ok=True)
+        epoch_before = loader.epoch
+        batches = iter(loader)
+        try:
+            for b_idx, batch in zip(range(max_batches), batches):
+                frames, masked, masks = self._put_batch(batch)
+                preds = self.predict_fn(masked, masks).cpu().numpy()
+                frames = frames.cpu().numpy()
+                for idx in range(min(samples_per_batch, frames.shape[0])):
+                    gt = frames[idx, ..., 0]  # (T, H, W)
+                    pd = np.clip(preds[idx, ..., 0], 0, 1)
+                    image = example_image(gt, pd, scale=self.viz_scale,
+                                          vmin=self.viz_vmin, vmax=self.viz_vmax)
+                    out_path = save_dir / f"{prefix}_epoch{epoch}_batch{b_idx}_ex{idx}.png"
+                    image.save(out_path)
+                    self.tracker.log_artifact(str(out_path))
+        finally:
+            batches.close()  # the loader's generator: its worker pool ends
+            loader.epoch = epoch_before
 
     # -- profiling -------------------------------------------------------
     def _maybe_start_profile(self) -> None:

@@ -1210,3 +1210,124 @@ def test_generic_generator_gradients_on_the_card(dev, P):
             assert float(g.abs().max()) > 0
             assert float((g - grads[str(dev)][name]).abs().max()) <= \
                 1e-4 * float(g.abs().max()), name
+
+
+# -- the online evaluation path: the metric suite on the card -------------------
+
+COUNT_LEAVES = ("n_obs", "ssim_n", "hits", "misses", "false", "correct", "counts")
+
+
+def _rain_pair(rng, shape):
+    """Normalized (preds, target) in [0, 60]: every threshold splits them;
+    values whose transform is within 1e-5 of a threshold are drawn again, so
+    the card's and the CPU's pow cannot flip a count."""
+    def clear(x):
+        while True:
+            mm = 10.0 ** (x.astype(np.float64) * 0.0625) * 0.036
+            near = np.zeros(x.shape, bool)
+            for thr in (0.5, 2.0, 4.0, 8.0):
+                near |= np.abs(mm / thr - 1.0) < 1e-5
+            if not near.any():
+                return x
+            x[near] = rng.uniform(0.0, 60.0, int(near.sum())).astype(np.float32)
+
+    target = rng.uniform(0.0, 60.0, shape).astype(np.float32)
+    preds = np.clip(target + rng.normal(0.0, 6.0, shape), 0.0, 60.0).astype(np.float32)
+    return clear(preds), clear(target)
+
+
+def _assert_suites_agree(card, cpu):
+    for part_card, part_cpu in zip(card.state, cpu.state):
+        for key, val in part_card.items():
+            assert val.device.type == "cuda" and val.dtype == torch.float32, key
+            got, want = val.cpu().numpy(), part_cpu[key].numpy()
+            if key in COUNT_LEAVES:
+                np.testing.assert_array_equal(got, want, err_msg=key)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=key)
+    got, want = card.compute(), cpu.compute()
+    assert got.keys() == want.keys()
+    for key, val in want.items():
+        np.testing.assert_allclose(got[key], val, rtol=1e-5, atol=1e-12, err_msg=key)
+
+
+def test_metric_suite_card_equals_cpu(dev):
+    """Counts exactly, sums and SSIM within rtol 1e-5, on inputs that cross
+    every threshold; an update waits for nothing on the card (it runs under
+    the sync debug mode "error")."""
+    from p2igan_tpu_torch.metrics import RainfallMetricSuite
+
+    rng = np.random.default_rng(11)
+    card, cpu = RainfallMetricSuite(device=dev), RainfallMetricSuite(device="cpu")
+    for channels in (1, 2):
+        preds, target = _rain_pair(rng, (2, 4, 32, 32, channels))
+        p_card, t_card = torch.from_numpy(preds).to(dev), torch.from_numpy(target).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card.update(p_card, t_card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu.update(torch.from_numpy(preds), torch.from_numpy(target))
+    for key in ("hits", "misses", "false", "correct"):
+        assert bool((cpu.state[1][key] > 0).all()), key
+    _assert_suites_agree(card, cpu)
+
+
+class _Recorder:
+    def __init__(self):
+        self.metrics = {}
+
+    def log_metric(self, key, value, step=None):
+        self.metrics[key] = (value, step)
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+@pytest.mark.parametrize("model", ["p2igan", "dk", "simple"])
+def test_evaluate_rec_loss_with_eval_metrics_on_the_card(dev, tmp_path, monkeypatch, model):
+    """train.eval_metrics on the card: every validation batch's prediction
+    goes into a suite on the card, whose val/* keys equal a CPU suite's on
+    the same tensors (counts exactly, the rest within rtol 1e-5)."""
+    from p2igan_tpu_torch.data import fake
+    from p2igan_tpu_torch.metrics import RainfallMetricSuite
+    from p2igan_tpu_torch.training.trainer import Trainer
+
+    monkeypatch.setenv("P2IGAN_FORCE_FILE_TRACKER", "1")
+    T, HW = 4, 32
+    fake.write_train_zarr(tmp_path / "train.zarr", n_events=2, T=12, H=HW, W=HW, window=T,
+                          stride=2, seed=0)
+    fake.write_gauge_mask(tmp_path / "gauges.txt", H=HW, W=HW, n_gauges=79, seed=1)
+    cfg = {"seed": 7, "save_dir": str(tmp_path / "w"),
+           "model": {"name": model, "in_channels": 1, "out_channels": 1,
+                     "base_channels": 4 * T},
+           "data": {"train": {"data_root": str(tmp_path / "train.zarr"), "w": HW, "h": HW,
+                              "sample_length": T,
+                              "mask": {"type": "stis", "file": str(tmp_path / "gauges.txt")}}},
+           "loss": {"adversarial_weight": 0.01, "k1_weight": 0.05, "gan_loss": "hinge",
+                    "use_gan": 0},
+           "train": {"optimizer": {"beta1": 0.0, "beta2": 0.99, "lr": 1e-4},
+                     "batch_size": 2, "num_workers": 2, "iterations": 1,
+                     "use_validation": True, "eval_metrics": True}}
+    seen = []
+    update = RainfallMetricSuite.update
+
+    def recording(self, preds, target):
+        assert self.device.type == "cuda" and preds.is_cuda and target.is_cuda
+        seen.append((preds.cpu(), target.cpu()))
+        return update(self, preds, target)
+
+    monkeypatch.setattr(RainfallMetricSuite, "update", recording)
+    tr = Trainer(cfg, device=dev)
+    tr.tracker = _Recorder()
+    loss = tr._evaluate_rec_loss(tr.val_loader)
+    assert np.isfinite(loss) and len(seen) == len(tr.val_loader) >= 1
+    cpu = RainfallMetricSuite(device="cpu")
+    for preds, target in seen:
+        update(cpu, preds, target)  # not the recording wrapper
+    want = cpu.compute()
+    got = {k[4:]: v for k, (v, step) in tr.tracker.metrics.items()}
+    assert got.keys() == want.keys()
+    for key, val in want.items():
+        np.testing.assert_allclose(got[key], val, rtol=1e-5, atol=1e-12, err_msg=key)

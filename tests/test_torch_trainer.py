@@ -194,3 +194,54 @@ def test_profile_window_and_predict(data_root, tmp_path):
     frames, masked, masks = tr._put_batch(next(iter(tr.val_loader)))
     preds = tr.predict_fn(masked, masks)
     assert preds.shape == frames.shape and not preds.requires_grad
+
+
+def test_validation_metrics_and_example_images(data_root, tmp_path, monkeypatch):
+    """train.eval_metrics: the trainer feeds the metric suite every
+    validation batch's prediction and logs each key as val/<key>; those
+    values equal the JAX suite's on the same predictions (rtol 1e-5, SSIM
+    2e-5). Every epoch writes one train example and one a validation batch
+    (up to five), 2 x HW rows by T x HW columns of RGB; the examples leave
+    the loader's epoch counter as it was."""
+    import jax.numpy as jnp
+    from PIL import Image
+
+    from p2igan_tpu.metrics import metric as JM
+    from p2igan_tpu_torch.metrics import RainfallMetricSuite
+    from p2igan_tpu_torch.utils.tracking import get_tracker
+
+    seen = []
+    update = RainfallMetricSuite.update
+
+    def recording(self, preds, target):
+        seen.append((preds.clone(), target.clone()))
+        return update(self, preds, target)
+
+    monkeypatch.setattr(RainfallMetricSuite, "update", recording)
+    cfg = _cfg(data_root, tmp_path / "ev", iterations=2)
+    cfg["train"]["eval_metrics"] = True
+    tr = Trainer(cfg, device="cpu")
+    tr.train()
+    assert tr.train_loader.epoch == 1 and len(seen) == len(tr.val_loader) >= 1
+    logged = {}
+    for line in (get_tracker().run_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["key"].startswith("val/") and rec["key"] != "val/loss":
+            assert rec["step"] == 2
+            logged[rec["key"][4:]] = rec["value"]
+    suite = JM.RainfallMetricSuite(JM.MetricConfig())
+    for preds, target in seen:
+        assert preds.shape == target.shape and preds.shape[1:] == (T, HW, HW, 1)
+        suite.update(jnp.asarray(preds.numpy()), jnp.asarray(target.numpy()))
+    want = suite.compute()
+    assert logged.keys() == want.keys() and len(want) == 3 + 16 + 16
+    for key, val in want.items():
+        np.testing.assert_allclose(logged[key], val, rtol=2e-5 if key == "ssim" else 1e-5,
+                                   atol=1e-12, err_msg=key)
+    artifacts = tmp_path / "ev" / "artifacts"
+    names = sorted(p.name for p in artifacts.glob("*.png"))
+    assert names == ["train_epoch1_batch0_ex0.png"] + [
+        f"val_epoch1_batch{b}_ex0.png" for b in range(min(5, len(tr.val_loader)))]
+    for name in names:
+        with Image.open(artifacts / name) as img:
+            assert img.mode == "RGB" and img.size == (T * HW, 2 * HW)
