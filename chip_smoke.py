@@ -177,7 +177,28 @@
      deterministic version; then the stis GAN step with cuDNN's
      deterministic algorithms and without (on, off, off, on; the two
      15-step runs with them must end bitwise equal, the two without are
-     compared and printed).
+     compared and printed);
+   - the data_parallel phase (``parallel/mesh.py``; every launch through
+     ``python -m torch.distributed.run --standalone``): the stis GAN's
+     5-step run of the repeat phase through ``scripts/train_torch.py`` at
+     world size 1, whose NCCL group the port's ``create_mesh`` makes: its
+     latest.ckpt bitwise the repeat phase's; two ranks on the one card over
+     gloo (named by ``chip_smoke.py --dp-worker``: NCCL refuses two ranks on
+     a device), global batch 12, 6 a rank, two 5-step runs: bitwise equal to
+     each other, #1-#4 launched on each rank, mean losses within 1e-4 and
+     parameters within 1e-5 of the single process's (all within Adam's bound
+     of 2 lr a step; after one step every element whose gradients clear the
+     noise floor, after 5 all but a share at most twice the noise witness's
+     and at most 1e-3: the single process's 5-step run with only the
+     elements the two-rank first step left beyond 1e-5 set to the two-rank
+     values); the 2 events served on two ranks with ``batch_events``
+     2, the store bitwise the single process's, and two events under
+     different masks dealt over the ranks bitwise the single process's; with
+     ``batch_events`` 1 rank 0 alone serves them, bitwise the serving phase's
+     store, and the other ranks launch nothing;
+     where the machine has several cards, the same over NCCL on min(cards, 4)
+     of them (else it prints that this did not run); the global steps/s of 1
+     and 2 ranks and the phase's seconds.
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time, null only for #9, whose chain fits in no card's memory at
@@ -190,6 +211,7 @@
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -1617,6 +1639,450 @@ def train_repeat(tmp: Path, card: str, dev) -> None:
               f"keys, eval_metrics on); three runs {time.perf_counter() - t0:.1f} s")
 
 
+# -- data parallelism ------------------------------------------------------------
+
+DP_ONE_CARD_RANKS = 2
+# one step on W ranks against one step on the whole batch (tests/test_parallel.py,
+# tests/test_torch_parallel.py): losses within 1e-4, parameters within 1e-5
+# except elements whose gradient is rounding noise of a zero on either side
+# (|g| under 1e-6 x the module's largest), which Adam's step moves by up to lr
+# either way whatever the noise. Over REPEAT_STEPS steps such flips spread (an
+# element whose gradient crosses zero at any step), so the 5-step runs are held
+# to Adam's bound (2 lr a step) everywhere and 1e-5 on all but a share of the
+# elements: at most DP_WITNESS_RATIO x the share that the noise witness
+# (dp_noise_witness: the first step's flips alone, under one process) reaches,
+# and at most DP_DRIFT_SHARE
+DP_LOSS_ATOL, DP_PARAM_ATOL, DP_NOISE_FLOOR = 1e-4, 1e-5, 1e-6
+DP_WITNESS_RATIO, DP_DRIFT_SHARE = 2.0, 1e-3
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of the data_parallel phase, under ``torch.distributed.run``
+    (``python3 chip_smoke.py --dp-worker <spec.json>``). Where the spec names
+    a backend the worker makes the process group itself (gloo for ranks that
+    share one card, each on cuda:0) and keeps it across its jobs (the CLIs'
+    closing ``shutdown`` waits for its last job); else the port's
+    ``create_mesh`` makes it, for one job. Each job runs
+    ``scripts/train_torch.py`` or ``scripts/infer_torch.py`` as a user would
+    and writes what the rank saw (launches, backend, steps, losses, log
+    times) to ``<out>_<job>_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from p2igan_tpu_torch.parallel import create_mesh, shutdown
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    if spec["one_card"]:
+        os.environ["LOCAL_RANK"] = "0"
+    own_group = bool(spec["backend"])
+    if own_group:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group(spec["backend"])
+    os.environ["P2IGAN_FORCE_FILE_TRACKER"] = "1"
+    get_tracker().set_tracking_uri(spec["mlruns"])
+    set_precision_policy()
+    for job in spec["jobs"]:
+        out = {"rank": rank, "device": f"cuda:{os.environ['LOCAL_RANK']}"}
+        cli = load_script("train_torch" if job["what"] == "train" else "infer_torch")
+        if own_group:
+            cli.shutdown = lambda: None  # the group outlives this job
+        reset_launches()
+        t0 = time.perf_counter()
+        if job["what"] == "train":
+            trainer = cli.main(cli.parse_args(job["argv"]))
+            state = hashlib.sha256()
+            for module in (trainer.generator, trainer.discriminator):
+                for t in module.state_dict().values():
+                    state.update(t.cpu().numpy().tobytes())
+            out.update(backend=trainer.mesh.backend, world=trainer.mesh.world,
+                       step=trainer.global_step, log_times=trainer.log_times,
+                       losses=[trainer.last_rec_loss, trainer.last_adv_loss,
+                               trainer.last_dis_loss], state=state.hexdigest())
+        else:
+            mesh = create_mesh("cuda")
+            out.update(backend=mesh.backend, world=mesh.world)
+            if job["batch_events"] > 1:
+                out["differing_masks"] = serve_differing_masks(job, mesh, Path(spec["tmp"]))
+            cli.main(cli.parse_args(job["argv"]))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=read_launches())
+        Path(f"{spec['out']}_{job['label']}_rank{rank}.json").write_text(json.dumps(out))
+    shutdown()
+    return 0
+
+
+def differing_mask_events(tmp: Path) -> tuple:
+    """The test store's two events under two 79-gauge masks."""
+    rng = np.random.default_rng(SEED + 7)
+    store = zarrlite.open(tmp / "test_events.zarr", mode="r")
+    frames = np.stack([store[f"event_{e + 1:02d}"][:] for e in range(2)])
+    frames = frames[..., None].astype(np.float32) / 255.0
+    masks = np.zeros_like(frames)
+    for e in range(2):
+        flat = np.zeros(H * W, np.float32)
+        flat[rng.choice(H * W, 79, replace=False)] = 1.0
+        masks[e] = flat.reshape(1, H, W, 1)
+    return frames * masks, masks
+
+
+def serve_differing_masks(job: dict, mesh, tmp: Path) -> bool:
+    """Rank 0: two events under different masks dealt over the ranks equal,
+    bit for bit, the single process's reconstruction (each event under its
+    own gauge selection, not event 0's); the other ranks return True."""
+    cfg = load_config(job["config"])
+    gen = load_generator(cfg, job["checkpoint"], mesh.device)
+    recon = SlidingWindowReconstructor(gen, stride=16, overlap=12,
+                                       window_batch=WINDOW_BATCH)
+    masked, masks = differing_mask_events(tmp)
+    got = recon.batch(masked, masks, mesh)
+    if not mesh.is_main:
+        return True
+    want = recon.batch(masked, masks)
+    own = np.stack([recon(masked[e], masks[e]) for e in range(2)])
+    return got.tobytes() == want.tobytes() == own.tobytes()
+
+
+def torchrun(nproc: int, script: str, args: list, timeout: float = 300.0) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc
+    script args``; its output, or a failure with its tail. On a timeout the
+    whole process group (launcher and ranks) is killed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", script, *args]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        log = proc.communicate()[0]
+        fail(f"torchrun {script} {' '.join(args)} timed out after {timeout} s:\n"
+             f"{log[-4000:]}")
+    if proc.returncode != 0:
+        fail(f"torchrun {script} {' '.join(args)} exited {proc.returncode}:\n"
+             f"{log[-6000:]}")
+    return log
+
+
+def dp_run(tmp: Path, label: str, nproc: int, jobs: list, backend,
+           one_card: bool) -> dict:
+    """One torchrun launch of ``dp_worker`` on ``nproc`` ranks: {job label:
+    what each rank wrote, by rank}."""
+    spec = {"jobs": jobs, "backend": backend, "one_card": one_card, "tmp": str(tmp),
+            "mlruns": str(tmp / f"mlruns_{label}"), "out": str(tmp / f"dp_{label}")}
+    path = tmp / f"dp_{label}.json"
+    path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    torchrun(nproc, str(REPO / "chip_smoke.py"), ["--dp-worker", str(path)])
+    got = {job["label"]: [json.loads((tmp / f"dp_{label}_{job['label']}_rank{r}.json")
+                                     .read_text()) for r in range(nproc)]
+           for job in jobs}
+    print(f"{label}: torchrun launch of {nproc} rank(s) {time.perf_counter() - t0:.1f} s, "
+          f"of which rank 0's jobs " + ", ".join(
+              f"{k} {v[0]['seconds']:.1f} s" for k, v in got.items()))
+    return got
+
+
+def dp_train_job(tmp: Path, label: str, steps: int = REPEAT_STEPS) -> tuple:
+    """A training job of the repeat phase's stis GAN config (eval_metrics),
+    ``steps`` steps, logging every step (a host read, no change of
+    arithmetic) for a rate; the job and its latest.ckpt."""
+    cfg = write_train_tree(tmp)
+    cfg["train"].update(iterations=steps, log_step=1, eval_metrics=True)
+    cfg["save_dir"] = str(tmp / f"weights_dp_{label}")
+    path = tmp / f"train_dp_{label}.json"
+    path.write_text(json.dumps(cfg))
+    job = {"label": label, "what": "train",
+           "argv": ["--config", str(path), "--device", "cuda", "--log-level", "WARNING"]}
+    return job, Path(cfg["save_dir"]) / "latest.ckpt"
+
+
+def dp_serve_job(tmp: Path, label: str, cfg_path: Path, checkpoint: Path,
+                 output: Path | None = None, batch_events: int = 2) -> dict:
+    """The 2 events served with ``batch_events`` (into ``output``, by
+    default ``served_dp_<label>.zarr``)."""
+    output = output or tmp / f"served_dp_{label}.zarr"
+    return {"label": label, "what": "serve", "config": str(cfg_path),
+            "checkpoint": str(checkpoint), "batch_events": batch_events,
+            "argv": ["--config", str(cfg_path), "--checkpoint", str(checkpoint),
+                     "--output", str(output), "--stride", "16",
+                     "--overlap", "12", "--window-batch", str(WINDOW_BATCH),
+                     "--batch-events", str(batch_events), "--device", "cuda",
+                     "--overwrite", "--log-level", "WARNING"]}
+
+
+def dp_rate(rank0: dict) -> float:
+    """Global GAN steps/s of a run logged every step, over steps 2-5."""
+    (s0, t_0), (s1, t_1) = rank0["log_times"][0], rank0["log_times"][-1]
+    return (s1 - s0) / (t_1 - t_0)
+
+
+def rms_gradients(payload: dict, module: str) -> dict:
+    """sqrt(nu) of each parameter of ``module`` in a checkpoint, by name:
+    Adam's second moment, the root mean square of its gradients times one
+    factor for all (after one step, 0.1 |g|)."""
+    names = list(payload[module]["params"])
+    state = payload["optimizer_" + module[0]]["state"]
+    return {names[i]: torch.sqrt(s["nu"].double()) for i, s in state.items()}
+
+
+def dp_close(single: dict, dealt: dict, label: str, steps: int) -> float:
+    """``dealt`` (the checkpoint of ``steps`` steps on W ranks) against
+    ``single`` (one process, the same steps on the whole batch), element by
+    element: everywhere within Adam's bound; after one step within
+    DP_PARAM_ATOL wherever both gradients (sqrt(nu / (1 - b2)) of the
+    checkpoint) stand above the noise floor. Which tensors hold the elements
+    beyond DP_PARAM_ATOL, and their gradients' size, is printed; their share
+    is returned."""
+    lr = load_config(TRAIN_CONFIG)["train"]["optimizer"]["lr"]
+    worst, beyond, total = 0.0, 0, 0
+    for module in ("generator", "discriminator"):
+        rms_s, rms_d = rms_gradients(single, module), rms_gradients(dealt, module)
+        top = max(float(r.max()) for r in rms_s.values())
+        rows = []
+        for key, want in single[module]["params"].items():
+            diff = (dealt[module]["params"][key].double() - want.double()).abs()
+            worst = max(worst, float(diff.max()))
+            out = diff > DP_PARAM_ATOL
+            beyond += int(out.sum())
+            total += diff.numel()
+            if float(diff.max()) > 2 * lr * steps:
+                fail(f"{label}: {module}.{key} differs by {float(diff.max())}, beyond "
+                     f"Adam's bound 2 lr x {steps} steps")
+            if not out.any():
+                continue
+            ratio = rms_s[key][out] / top
+            rows.append((int(out.sum()), key, diff.numel(), float(diff.max()),
+                         float(ratio.max()), float(ratio.median())))
+            if steps == 1:
+                floor = DP_NOISE_FLOOR * top
+                resolved = (rms_s[key] > floor) & (rms_d[key] > floor)
+                if (out & resolved).any():
+                    fail(f"{label}: {module}.{key}: {int((out & resolved).sum())} "
+                         f"elements with a gradient above the noise floor differ by up "
+                         f"to {float(diff[out & resolved].max())} after one step")
+        rows.sort(reverse=True)
+        print(f"{label} {module}, {steps} step(s): elements beyond {DP_PARAM_ATOL} by "
+              f"tensor (count, name, size, max diff, their largest and median RMS "
+              f"gradient / the module's largest {top:.3e}): " + ("; ".join(
+                  f"{n} {k} {size} {d:.2e} {rmax:.2e} {rmed:.2e}"
+                  for n, k, size, d, rmax, rmed in rows[:12]) or "none"))
+    print(f"{label}: parameters against the single process after {steps} step(s): "
+          f"max abs diff {worst:.3e}; {beyond} of {total} elements beyond "
+          f"{DP_PARAM_ATOL} ({beyond / total:.2e})")
+    return beyond / total
+
+
+def dp_noise_witness(tmp: Path, label: str, single: dict, dealt_1: dict) -> float:
+    """The single process's REPEAT_STEPS-step stis GAN run (the repeat
+    phase's) with, after its first step, only the elements that the W-rank
+    first step (``dealt_1``) left beyond DP_PARAM_ATOL of it set to their
+    W-rank values: Adam's +-lr of gradients that are rounding noise of a zero.
+    Its share beyond DP_PARAM_ATOL of the plain run after REPEAT_STEPS steps
+    is what those flips alone grow to under one process's arithmetic."""
+    from p2igan_tpu_torch.training.trainer import Trainer
+
+    build, seen = Trainer._build_steps, {"steps": 0, "set": 0, "first_differs": 0}
+    plain_1 = single["1"]["payload"]
+
+    def flip_after_first(self, idw_prepared=None):
+        build(self, idw_prepared)
+        step = self.train_step
+
+        def wrapped(*batch):
+            metrics = step(*batch)
+            seen["steps"] += 1
+            if seen["steps"] == 1:
+                with torch.no_grad():
+                    for name, module in (("generator", self.generator),
+                                         ("discriminator", self.discriminator)):
+                        for key, param in module.named_parameters():
+                            seen["first_differs"] += int(
+                                (param.cpu() != plain_1[name]["params"][key]).sum())
+                            other = dealt_1[name]["params"][key].to(param.device)
+                            flip = (other - param).abs() > DP_PARAM_ATOL
+                            param[flip] = other[flip]
+                            seen["set"] += int(flip.sum())
+            return metrics
+
+        self.train_step = wrapped
+
+    job, ckpt = dp_train_job(tmp, f"{label}_witness")
+    train_torch = load_script("train_torch")
+    Trainer._build_steps = flip_after_first
+    try:
+        train_torch.main(train_torch.parse_args(job["argv"]))
+    finally:
+        Trainer._build_steps = build
+    if seen["first_differs"]:
+        fail(f"{label} witness: its first step differs from the one-step run's in "
+             f"{seen['first_differs']} elements")
+    share = dp_close(single["a"]["payload"], load_checkpoint_raw(ckpt),
+                     f"{label} noise witness", REPEAT_STEPS)
+    print(f"{label} noise witness: one process, {REPEAT_STEPS} steps, the first "
+          f"step's {seen['set']} elements beyond {DP_PARAM_ATOL} of the {label} "
+          f"one-step run set to its values after step 1 (the first step bitwise the "
+          f"one-step run's): {share:.3e} of the parameters beyond {DP_PARAM_ATOL}")
+    return share
+
+
+def dp_check_train(tmp: Path, runs: dict, ckpts: dict, label: str, nproc: int,
+                   single: dict) -> None:
+    """The training runs on ``nproc`` ranks (one step, then two of
+    REPEAT_STEPS): each rank launched #1-#4 and ends with the same state as
+    the others; the two long runs end bitwise equal; each run is the single
+    process's within the tolerances above (the long one's share beyond
+    DP_PARAM_ATOL against the noise witness's), its mean losses within
+    DP_LOSS_ATOL."""
+    for run, ranks in runs.items():
+        steps = 1 if run == "1" else REPEAT_STEPS
+        for r in ranks:
+            if r["step"] != steps or r["world"] != nproc:
+                fail(f"{label} {run}: rank {r['rank']} trained {r['step']} steps on world "
+                     f"{r['world']}")
+            if r["state"] != ranks[0]["state"]:
+                fail(f"{label} {run}: rank {r['rank']}'s models differ from rank 0's")
+            for name in ("gauge_topk", "combine_table_multi", "combine_table_multi_bwd",
+                         "maxpool2_duplicate"):
+                if r["launches"][name] <= 0:
+                    fail(f"{label}: rank {r['rank']} launched no {name}")
+    payloads = {run: load_checkpoint_raw(c) for run, c in ckpts.items()}
+    diff = same_bits(payloads["a"], payloads["b"])
+    if diff:
+        fail(f"{label}: two runs differ in {len(diff)} checkpoint entries: {diff[:8]}")
+    dp_close(single["1"]["payload"], payloads["1"], f"{label} 1", 1)
+    share = dp_close(single["a"]["payload"], payloads["a"], f"{label} a", REPEAT_STEPS)
+    witness = dp_noise_witness(tmp, label, single, payloads["1"])
+    if share > min(DP_WITNESS_RATIO * witness, DP_DRIFT_SHARE):
+        fail(f"{label}: {share:.3e} of the parameters beyond {DP_PARAM_ATOL} of the "
+             f"single process's after {REPEAT_STEPS} steps, over {DP_WITNESS_RATIO} x "
+             f"the noise witness's {witness:.3e} or {DP_DRIFT_SHARE}")
+    for run in ("1", "a"):
+        for got, want, name in zip(runs[run][0]["losses"], single[run]["losses"],
+                                   ("rec", "adv", "dis")):
+            if not abs(got - want) <= DP_LOSS_ATOL:
+                fail(f"{label} {run}: mean {name} loss {got} against the single "
+                     f"process's {want}")
+    ranks = runs["a"]
+    print(f"{label}: {nproc} ranks ({ranks[0]['backend']}, "
+          f"{', '.join(r['device'] for r in ranks)}), global batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // nproc} a rank): every rank ends with the same state; two "
+          f"{REPEAT_STEPS}-step runs end bitwise equal; mean losses rec/adv/dis of 1 step "
+          f"{runs['1'][0]['losses']} (single process {single['1']['losses']}), of "
+          f"{REPEAT_STEPS} {ranks[0]['losses']} ({single['a']['losses']}); launches by "
+          f"rank {[{k: v for k, v in r['launches'].items() if v} for r in ranks]}")
+
+
+def dp_check_serve(tmp: Path, ranks: list, label: str, single_store: Path) -> None:
+    """The store served on the ranks is bitwise the single process's, events
+    under differing masks too, and every rank launched the serving kernels."""
+    nproc = len(ranks)
+    if not stores_equal(single_store, tmp / f"served_dp_{label}.zarr"):
+        fail(f"{label}: the store served on {nproc} ranks differs from the single "
+             f"process's")
+    if not all(r["differing_masks"] for r in ranks):
+        fail(f"{label}: two events under different masks, dealt over {nproc} ranks, "
+             f"differ from the single process's reconstruction")
+    for r in ranks:
+        for name in SERVING_KERNELS:
+            if r["launches"][name] <= 0:
+                fail(f"{label}: rank {r['rank']} launched no {name}")
+    print(f"{label}: 2 events, batch_events 2, on {nproc} ranks "
+          f"({ranks[0]['backend']}): the store is bitwise the single process's; two "
+          f"events under different masks bitwise too; launches by rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}")
+
+
+def dp_check_solo(tmp: Path, ranks: list, label: str) -> None:
+    """``batch_events`` 1 on the ranks: rank 0 alone served, the store bitwise
+    the serving phase's single process's, and the other ranks launched
+    nothing (they returned with no collective)."""
+    if not stores_equal(tmp / "served_p2igan.zarr", tmp / f"served_dp_{label}.zarr"):
+        fail(f"{label}: rank 0's batch_events 1 store differs from the single process's")
+    for name in SERVING_KERNELS:
+        if ranks[0]["launches"][name] <= 0:
+            fail(f"{label}: rank 0 launched no {name}")
+    if any(any(r["launches"].values()) for r in ranks[1:]):
+        fail(f"{label}: a rank other than 0 served with batch_events 1")
+    print(f"{label}: 2 events, batch_events 1, on {len(ranks)} ranks: rank 0 served "
+          f"alone ({ranks[0]['seconds']:.1f} s), the store bitwise the single "
+          f"process's; the other ranks returned in "
+          f"{max(r['seconds'] for r in ranks[1:]):.2f} s")
+
+
+def dp_ranks(tmp: Path, label: str, nproc: int, backend: str, one_card: bool,
+             single: dict, cfg_path: Path, checkpoint: Path, single_store: Path) -> float:
+    """The stis GAN for one step and twice for REPEAT_STEPS, and the serving
+    of the 2 events, on ``nproc`` ranks in one launch; the global steps/s of
+    the first long run."""
+    jobs, ckpts = [], {}
+    for run, steps in (("1", 1), ("a", REPEAT_STEPS), ("b", REPEAT_STEPS)):
+        job, ckpts[run] = dp_train_job(tmp, f"{label}_{run}", steps)
+        jobs.append(job)
+    jobs.append(dp_serve_job(tmp, f"{label}_serve", cfg_path, checkpoint))
+    jobs.append(dp_serve_job(tmp, f"{label}_solo", cfg_path, checkpoint, batch_events=1))
+    got = dp_run(tmp, label, nproc, jobs, backend, one_card)
+    dp_check_train(tmp, {run: got[f"{label}_{run}"] for run in ckpts}, ckpts, label,
+                   nproc, single)
+    dp_check_serve(tmp, got[f"{label}_serve"], f"{label}_serve", single_store)
+    dp_check_solo(tmp, got[f"{label}_solo"], f"{label}_solo")
+    return dp_rate(got[f"{label}_a"][0])
+
+
+def data_parallel(tmp: Path, card: str, cfg_path: Path, checkpoint: Path) -> None:
+    """The port's data parallelism through ``torch.distributed.run``: NCCL at
+    world size 1 (``scripts/train_torch.py`` as a user runs it; its
+    checkpoint bitwise the repeat phase's), two ranks on the one card over
+    gloo (NCCL refuses two ranks on a device) training and serving, and the
+    same over NCCL across cards where the machine has several."""
+    t0 = time.perf_counter()
+    # the single process: the repeat phase's 5-step run, and one step here
+    single = {"a": {"payload": load_checkpoint_raw(tmp / "weights_repeat_stis_GAN_a" /
+                                                   "latest.ckpt")}}
+    job, ckpt = dp_train_job(tmp, "single_1", 1)
+    train_torch = load_script("train_torch")
+    trainer = train_torch.main(train_torch.parse_args(job["argv"]))
+    single["1"] = {"payload": load_checkpoint_raw(ckpt),
+                   "losses": [trainer.last_rec_loss, trainer.last_adv_loss,
+                              trainer.last_dis_loss]}
+    job, ckpt_w1 = dp_train_job(tmp, "nccl1")
+    w1 = dp_run(tmp, "nccl1", 1, [job], None, False)["nccl1"][0]
+    diff = same_bits(single["a"]["payload"], load_checkpoint_raw(ckpt_w1))
+    if w1["backend"] != "nccl" or diff:
+        fail(f"NCCL at world size 1 ({w1['backend']}): the checkpoint differs from the "
+             f"repeat phase's in {diff[:8]}")
+    single["a"]["losses"] = w1["losses"]  # this run is the single process's
+    rates = {"1 rank (nccl)": dp_rate(w1)}
+    print(f"data_parallel: python -m torch.distributed.run --nproc_per_node 1 "
+          f"scripts/train_torch.py (NCCL made by create_mesh): latest.ckpt bitwise the "
+          f"repeat phase's stis GAN run (all "
+          f"{len(dict(tensors_of(single['a']['payload'])))} entries)")
+    single_store = tmp / "served_p2igan_be2.zarr"
+    infer_torch = load_script("infer_torch")
+    infer_torch.main(infer_torch.parse_args(dp_serve_job(
+        tmp, "single", cfg_path, checkpoint, output=single_store)["argv"]))
+    print(f"single process, batch_events 2: store bitwise the batch_events 1 store: "
+          f"{stores_equal(single_store, tmp / 'served_p2igan.zarr')}")
+    print(f"data_parallel: {DP_ONE_CARD_RANKS} ranks on the one card over gloo (chosen "
+          f"explicitly: NCCL refuses two ranks on one device)")
+    rates[f"{DP_ONE_CARD_RANKS} ranks on one card (gloo)"] = dp_ranks(
+        tmp, "gloo_one_card", DP_ONE_CARD_RANKS, "gloo", True, single, cfg_path,
+        checkpoint, single_store)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(cards, 4)
+        rates[f"{n} ranks on {n} cards (nccl)"] = dp_ranks(
+            tmp, f"nccl_{n}_cards", n, "nccl", False, single, cfg_path, checkpoint,
+            single_store)
+    else:
+        print(f"data_parallel: NCCL across cards did not run: this machine has {cards} "
+              f"card")
+    print(f"data_parallel: stis GAN global steps/s at batch {TRAIN_BATCH} over steps "
+          f"2-{REPEAT_STEPS} (logged every step): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rates.items())
+          + f"; single process in this run {RATES['p2igan stis GAN']:.4f} (its 10 timed "
+          f"steps) on {card}; phase {time.perf_counter() - t0:.1f} s")
+
+
 # -- p2igan on per-sample sti masks --------------------------------------------
 
 def sti_config(cfg: dict) -> dict:
@@ -2969,6 +3435,7 @@ def main() -> int:
         train_repeat(tmp, card, dev)
         deterministic_cudnn_cost(tmp, card, dev)
         print(f"repeat phase: {time.perf_counter() - t0:.1f} s")
+        data_parallel(tmp, card, cfg_path, checkpoint)
         host_loader_rate(tmp, write_train_tree(tmp, DK_FAMILY["dk"][1]), "stis gauge file")
         for model in DK_FAMILY:
             cfg_path, checkpoint = write_dk_serving(tmp, model)
@@ -3005,4 +3472,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

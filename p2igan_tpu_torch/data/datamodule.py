@@ -11,7 +11,11 @@ Counterpart of ``p2igan_tpu/data/datamodule.py`` (reference
 * loading: a thread-pool prefetch loader producing numpy batches
   (B, T, H, W, C); the per-item RNG is derived from (seed, epoch, index), so
   the same seed gives the same batches and masks as the JAX package; shorter
-  sequences pad by repeating their last frame.
+  sequences pad by repeating their last frame;
+* data parallelism: a loader of rank r of W (``rank``, ``world``) reads only
+  rank r's rows of each global batch (``parallel.shard_rows``); the global
+  order and every item's mask come from the same seeds on every rank, so its
+  rows hold what the single process's batch holds there.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import build_dataset_args, drop_sample_length, extract_shared_params
+from ..parallel.mesh import shard_rows
 from .stores import EventDataset, Item, ZarrWindowDataset
 
 
@@ -58,7 +63,8 @@ class Subset:
 
 
 class Loader:
-    """Thread-pool prefetching batch loader over an indexable dataset."""
+    """Thread-pool prefetching batch loader over an indexable dataset; with
+    ``world`` > 1 it yields rank ``rank``'s rows of each global batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int = 0,
                  num_workers: int = 4, drop_last: bool = False,
@@ -71,12 +77,20 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch_batches = prefetch_batches
         self.epoch = 0
+        self.rank, self.world = 0, 1
 
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
+
+    def global_sizes(self) -> List[int]:
+        """The global batches' sizes, in order (a rank's own batch is a
+        ``world``-th of one, or all of it where the size does not divide)."""
+        n = len(self.dataset)
+        sizes = [min(self.batch_size, n - i) for i in range(0, n, self.batch_size)]
+        return sizes[:len(self)]
 
     def _order(self) -> np.ndarray:
         n = len(self.dataset)
@@ -92,6 +106,7 @@ class Loader:
                                      for i in range(0, len(order), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        batches = [shard_rows(b, self.rank, self.world) for b in batches]
 
         def fetch(idx: int) -> Item:
             rng = np.random.default_rng((self.seed, epoch, int(idx)))

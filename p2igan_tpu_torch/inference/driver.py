@@ -15,6 +15,17 @@ repeating the final frame, overlap averaging with a 1e-5 weight floor,
 x output_scale then clip >= 0, ``event_%02d`` naming, pass-k running mean
 ``cur + (new - cur)/(k+1)``, provenance attrs, samples/sec logging.
 
+Several ranks (``parallel/mesh.py``, one process a device under ``torchrun``),
+as the JAX package's mesh serving: with ``batch_events`` > 1 the window chunks
+of an event batch are dealt to the ranks, chunk c (of ``window_batch``
+windows) to rank c mod W, so every chunk is one the single process computes;
+rank 0 takes each chunk's predictions by a broadcast from its owner, in
+stream order, accumulates them as the single process does and writes the
+store, which is therefore the single process's bit for bit. With
+``batch_events`` 1 the JAX package serves on one device: rank 0 serves alone
+and the others return at once, with no collective (the launch ends when rank
+0 does).
+
 Precision: float32 throughout; TF32 is switched off for cuDNN convolutions
 and matmuls (PyTorch enables it for convolutions by default), as the JAX
 reference computes in float32, and cuDNN takes deterministic algorithms
@@ -36,8 +47,10 @@ from ..data import zarrlite
 from ..data.datamodule import P2IDataModule, pad_repeat_last
 from ..data.stores import store_compressor
 from ..models import build_generator_for_inference
+from ..ops import cuda_lib
 from ..ops.idw import round_up
 from ..ops.layers import InputBlock
+from ..parallel.mesh import create_mesh
 from ..training.checkpoint import load_generator_state, resolve_checkpoint
 
 
@@ -48,16 +61,6 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The requested device; a CUDA request without a usable GPU raises
-    (no silent CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
-                           "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _overlap_average(accum: torch.Tensor, count: torch.Tensor, E: int, T: int,
@@ -145,8 +148,11 @@ class SlidingWindowReconstructor:
         return win_idx, tgt
 
     @torch.inference_mode()
-    def _reconstruct(self, masked: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-        """(E, T, H, W, C) device tensors -> (E, T, H, W, C) reconstruction."""
+    def _reconstruct(self, masked: torch.Tensor, masks: torch.Tensor,
+                     mesh=None) -> Optional[torch.Tensor]:
+        """(E, T, H, W, C) device tensors -> (E, T, H, W, C) reconstruction;
+        over the ranks of ``mesh`` (chunk c on rank c mod W) the result is on
+        rank 0 and the others return None."""
         E, T, H, W, C = masked.shape
         wb = self.window_batch
         win_idx, tgt = self._window_tables(T, E, wb)
@@ -165,30 +171,53 @@ class SlidingWindowReconstructor:
         kw = ({"idw_prepared": gen.prepare_idw(masks[0, 0, :, :, 0])}
               if self._supports_prepared_idw() else {})
         accum = torch.zeros((E * (T + 1), H, W, C), dtype=torch.float32, device=dev)
-        for lo in range(0, win_idx.shape[0], wb):
-            idx = win_idx[lo:lo + wb]
-            preds = gen(flat_m[idx], flat_k[idx], **kw).to(torch.float32)
+
+        def add(lo, preds):
             for i, (t0, n) in enumerate(runs[lo:lo + wb]):
                 if n:
                     accum[t0:t0 + n] += preds[i, :n]
+
+        chunks = range(0, win_idx.shape[0], wb)
+        if mesh is None or mesh.world == 1:
+            for lo in chunks:
+                idx = win_idx[lo:lo + wb]
+                add(lo, gen(flat_m[idx], flat_k[idx], **kw).to(torch.float32))
+        else:
+            own = {lo: gen(flat_m[win_idx[lo:lo + wb]], flat_k[win_idx[lo:lo + wb]],
+                           **kw).to(torch.float32)
+                   for c, lo in enumerate(chunks) if c % mesh.world == mesh.rank}
+            for c, lo in enumerate(chunks):
+                src = c % mesh.world
+                preds = own.pop(lo) if src == mesh.rank else torch.empty(
+                    (wb, self.stride, H, W, C), dtype=torch.float32, device=dev)
+                mesh.broadcast_(preds, src)
+                if mesh.is_main:
+                    add(lo, preds)
+            if not mesh.is_main:
+                return None
         return _overlap_average(accum, torch.from_numpy(count).to(dev), E, T,
                                 self.output_scale)
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
-    def batch(self, masked: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    def batch(self, masked: np.ndarray, masks: np.ndarray,
+              mesh=None) -> Optional[np.ndarray]:
         """Reconstruct equal-length events (E, T, H, W, C) as one flattened
         window stream. With the hoisted IDW the stream shares ONE gauge
         selection, so events with different masks are then reconstructed one
         by one instead; a per-sample (sti) or generic generator takes them as
-        one stream whatever their masks."""
+        one stream whatever their masks. Over the ranks of ``mesh`` each
+        stream's window chunks are dealt to the ranks; rank 0 returns the
+        result, the others None."""
         self._check_gauge_budget(masks)
         if self._supports_prepared_idw() and not self._masks_shared(masks):
-            return np.stack([self(masked[e], masks[e])
-                             for e in range(masked.shape[0])])
-        out = self._reconstruct(self._to_device(masked), self._to_device(masks))
-        return out.cpu().numpy()
+            outs = [self._reconstruct(self._to_device(masked[e:e + 1]),
+                                      self._to_device(masks[e:e + 1]), mesh)
+                    for e in range(masked.shape[0])]
+            return None if outs[0] is None else torch.cat(outs).cpu().numpy()
+        out = self._reconstruct(self._to_device(masked), self._to_device(masks), mesh)
+        return None if out is None else out.cpu().numpy()
 
     def __call__(self, masked: np.ndarray, masks: np.ndarray) -> np.ndarray:
         """masked/masks: (T, H, W, C) -> reconstructed (T, H, W, C) float32."""
@@ -219,8 +248,12 @@ def run_inference(cfg: Dict[str, Any], *, checkpoint: Optional[str] = None,
                   log_every: int = 50, window_batch: int = 8,
                   batch_events: int = 1, fold_weights: bool = True,
                   config_path: str = "<inline>", device: str = "cuda") -> Path:
-    """Full inference driver (reference scripts/infer.py main)."""
-    dev = resolve_device(device)
+    """Full inference driver (reference scripts/infer.py main).
+
+    Under ``torchrun`` every rank calls it; rank 0 writes the store (see the
+    module docstring)."""
+    mesh = create_mesh(device)
+    dev = mesh.device
     set_precision_policy()
     if data_root is not None:
         cfg.setdefault("data", {}).setdefault("test", {})["data_root"] = str(data_root)
@@ -246,27 +279,39 @@ def run_inference(cfg: Dict[str, Any], *, checkpoint: Optional[str] = None,
     if output is None:
         output = Path(model_dir or cfg.get("save_dir", "weights")) / f"test{model_name}.zarr"
     output = Path(output)
-    if output.exists():
-        if not overwrite:
-            raise FileExistsError(f"Output already exists: {output}")
-        if output.is_dir():
-            shutil.rmtree(output)
-        else:
-            output.unlink()
-
-    logging.info("Writing predictions to %s", output)
+    batch_events = max(1, int(batch_events))
+    # the ranks the window chunks are dealt to (None: this process serves alone)
+    deal = mesh if mesh.world > 1 and batch_events > 1 else None
+    if deal is None and not mesh.is_main:
+        # batch_events 1 serves on one device: rank 0, with no collective, as
+        # a rank waiting at one for the whole run would outlast NCCL's timeout
+        return output
+    if output.exists() and not overwrite:
+        raise FileExistsError(f"Output already exists: {output}")
+    if deal is not None:
+        mesh.barrier()  # every rank has looked before rank 0 replaces it
+        if dev.type == "cuda":
+            mesh.main_first(cuda_lib.library)
     compressor = store_compressor()
-    group = zarrlite.open_group(output, mode="w")
-    group.attrs.update({
-        "config_path": str(config_path),
-        "checkpoint": str(checkpoint_path),
-        "model_name": model_name,
-        "data_root": cfg.get("data", {}).get("test", {}).get("data_root"),
-        "passes": int(passes),
-        "output_scale": float(output_scale),
-    })
-    if hasattr(dataset, "video_files"):
-        group.attrs["files"] = [str(p) for p in dataset.video_files]
+    group = None
+    if mesh.is_main:
+        if output.exists():
+            if output.is_dir():
+                shutil.rmtree(output)
+            else:
+                output.unlink()
+        logging.info("Writing predictions to %s", output)
+        group = zarrlite.open_group(output, mode="w")
+        group.attrs.update({
+            "config_path": str(config_path),
+            "checkpoint": str(checkpoint_path),
+            "model_name": model_name,
+            "data_root": cfg.get("data", {}).get("test", {}).get("data_root"),
+            "passes": int(passes),
+            "output_scale": float(output_scale),
+        })
+        if hasattr(dataset, "video_files"):
+            group.attrs["files"] = [str(p) for p in dataset.video_files]
 
     generator = load_generator(cfg, checkpoint_path, dev, fold_weights)
     recon = SlidingWindowReconstructor(generator, stride=stride, overlap=overlap,
@@ -274,7 +319,6 @@ def run_inference(cfg: Dict[str, Any], *, checkpoint: Optional[str] = None,
                                        output_scale=output_scale)
     passes = max(1, int(passes))
     log_every = max(1, int(log_every))
-    batch_events = max(1, int(batch_events))
 
     def write_event(pass_idx: int, event_idx: int, comp: np.ndarray) -> None:
         event_name = f"event_{event_idx + 1:02d}"
@@ -302,7 +346,8 @@ def run_inference(cfg: Dict[str, Any], *, checkpoint: Optional[str] = None,
             tmax = max(m.shape[0] for _, m, _ in pending)
             ms = np.stack([pad_repeat_last(m, tmax) for _, m, _ in pending])
             ks = np.stack([pad_repeat_last(k, tmax) for _, _, k in pending])
-            for (idx, m, _), comp in zip(pending, recon.batch(ms, ks)):
+            comps = recon.batch(ms, ks, deal)
+            for (idx, m, _), comp in zip(pending, () if comps is None else comps):
                 write_event(pass_idx, idx, comp[:m.shape[0]])
             done += len(pending)
             pending.clear()
@@ -327,5 +372,7 @@ def run_inference(cfg: Dict[str, Any], *, checkpoint: Optional[str] = None,
                      pass_idx + 1, passes, done, num_samples,
                      done / max(time.time() - t0, 1e-6))
 
+    if deal is not None:
+        mesh.barrier()  # the store is whole before any rank returns
     logging.info("Inference completed. Output saved to %s", output)
     return output

@@ -5,8 +5,8 @@ Counterpart of ``p2igan_tpu/metrics/metric.py`` (reference
 over a state that is a dict of float32 tensors with the JAX leaves' names, so
 a state compares leaf by leaf with the JAX suite's. ``update`` runs on the
 state's device and never waits for it; ``compute`` alone reads the state to
-the host. Every leaf is a sum, so a multi-device run would all-reduce the
-state dict (not ported: one device here).
+the host. Every leaf is a sum, so a data-parallel run all-reduces the states
+(``RainfallMetricSuite.all_reduce_state``, the JAX ``psum_state``).
 
 The rainfall transform here is ``10^(x*0.0625)*0.036`` (metric.py:16-20);
 it differs from ``losses.transform`` on purpose, as in the reference.
@@ -352,6 +352,26 @@ class RainfallMetricSuite:
                                       self.cfg.data_range),
             categorical_metrics_update(cat, preds, target, thr),
             fss_update(fss, preds, target, thr, sc))
+
+    @staticmethod
+    def all_reduce_state(state, mesh):
+        """The sum over the ranks of ``mesh`` of a state (a dict of tensors, or
+        a tuple or list of such dicts, as ``self.state``): one all-reduce of
+        the leaves in one flat buffer; every leaf is a sum-accumulator, as in
+        ``psum_state`` of the JAX suite. A single-process mesh returns
+        ``state`` itself."""
+        if not mesh.distributed:
+            return state
+        dicts = [state] if isinstance(state, dict) else list(state)
+        leaves = [d[k] for d in dicts for k in d]
+        flat = mesh.all_reduce_(torch.cat([v.reshape(-1) for v in leaves]))
+        out, offset = [], 0
+        for d in dicts:
+            out.append({})
+            for k, v in d.items():
+                out[-1][k] = flat[offset:offset + v.numel()].view_as(v).clone()
+                offset += v.numel()
+        return out[0] if isinstance(state, dict) else type(state)(out)
 
     def compute(self) -> Dict[str, float]:
         thr, sc = self.cfg.thresholds, self.cfg.scales

@@ -53,7 +53,12 @@ class BatchNorm(nn.Module):
     """BatchNorm over (B, C, ...) with flax's running-statistics update:
     ``running = 0.9 * running + 0.1 * batch`` with the **biased** batch
     variance (``nn.BatchNorm3d`` stores the unbiased one). The normalisation
-    itself, and its gradient, are ``F.batch_norm``'s."""
+    itself, and its gradient, are ``F.batch_norm``'s.
+
+    ``mesh`` (set by the train step of a data-parallel run over several
+    ranks): training-mode statistics are the global batch's, as under the
+    JAX package's ``pjit``, and the running statistics advance by the global
+    mean and biased variance (``DataMesh.batch_norm``)."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
                  device=None):
@@ -63,6 +68,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.mesh = None
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -72,6 +78,13 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if self.mesh is not None:
+            y, mean, var = self.mesh.batch_norm(x, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            return y
         # momentum 1 leaves the batch mean and the unbiased batch variance in
         # the two scratch buffers, without another pass over x
         mean, var = torch.zeros_like(self.running_mean), torch.zeros_like(self.running_var)

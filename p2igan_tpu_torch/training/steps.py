@@ -13,6 +13,17 @@ Counterpart of ``p2igan_tpu/training/steps.py`` (reference
      parameters; that D forward also advances the spectral ``u``;
   5. G update.
 
+Data parallelism (``mesh``, a ``parallel.DataMesh`` of several ranks): each
+rank runs the step on its rows of the global batch, and the gradients are
+averaged over the ranks between each ``backward`` and its optimizer step
+(explicitly, not through ``DistributedDataParallel``, whose hooks do not fit
+the G step's second D forward with the critic frozen, and whose buffer
+broadcast would overwrite the spectral vectors every rank advances alike).
+Every loss term is a mean over samples (``weighted_l1_distance`` a mean,
+``kl_divergence`` ``batchmean``, the GAN losses means), so the average of the
+ranks' gradients is the global batch's. BatchNorm layers take the global
+batch's statistics.
+
 Every training D forward advances the discriminator's state once
 (``update_stats=True``), as in the JAX package: the spectral-norm power
 iteration of the P2I discriminator, the BatchNorm running statistics of the
@@ -43,7 +54,7 @@ import torch
 from torch import nn
 
 from ..losses import gan_loss, reconstruction_loss
-from ..models.simple import SimpleDiscriminator
+from ..models.simple import BatchNorm, SimpleDiscriminator
 
 
 class AdamNoMu(torch.optim.Optimizer):
@@ -122,10 +133,17 @@ def build_train_step(
     gan_fake_label: float = 0.0,
     fused_disc_forward: bool = True,
     idw_prepared=None,
+    mesh=None,
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """step(frames, masked, masks) -> metrics (0-dim tensors on the device,
-    not synchronized). Updates the models and optimizers in place; after the
-    step every parameter's ``.grad`` holds the gradient its update used."""
+    not synchronized, this rank's). Updates the models and optimizers in
+    place; after the step every parameter's ``.grad`` holds the gradient its
+    update used (averaged over the ranks of ``mesh``)."""
+    if mesh is not None and mesh.world > 1:
+        for module in (gen, disc):
+            for m in module.modules() if module is not None else ():
+                if isinstance(m, BatchNorm):
+                    m.mesh = mesh
     gen_apply = _gen_apply(gen, idw_prepared)
     gan = functools.partial(gan_loss, loss_type=gan_loss_type,
                             target_real_label=gan_real_label,
@@ -151,6 +169,8 @@ def build_train_step(
             loss_d = (gan(logits_real, True, is_disc=True)
                       + gan(logits_fake, False, is_disc=True)) * 0.5
             loss_d.backward()
+            if mesh is not None:
+                mesh.reduce_gradients(disc.parameters())
             opt_d.step()
             metrics["dis_loss"] = loss_d.detach()
 
@@ -167,6 +187,8 @@ def build_train_step(
             adv = gan(logits, True, is_disc=False) * adversarial_weight
             loss = loss + adv
         loss.backward()
+        if mesh is not None:
+            mesh.reduce_gradients(gen.parameters())
         opt_g.step()
         metrics.update({"loss": loss.detach(), "rec_loss": rec.detach(),
                         "adv_loss": adv.detach(), "pool": parts["pool"].detach(),

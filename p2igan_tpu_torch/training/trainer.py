@@ -1,4 +1,4 @@
-"""Training orchestration of the port (PyTorch, one device).
+"""Training orchestration of the port (PyTorch, one device or several).
 
 Counterpart of ``p2igan_tpu/training/trainer.py`` (reference
 ``scripts/train.py:98-225``). Owns the data module, the generator and
@@ -27,7 +27,19 @@ discriminator, their optimizers, the tracker run and the checkpoints:
   they leave the loader's epoch counter as they found it, so a resumed run
   trains on the same batches as an uninterrupted one.
 
-Not ported: the device mesh (one device here).
+Data parallelism (``parallel/mesh.py``, one process a device under
+``torchrun``; without its environment the run is the single-process one, bit
+for bit): the batch is global and each rank's loaders read its rows
+(``drop_last`` on the training loader, so every rank takes as many steps);
+parameters, buffers and optimizer state are broadcast from rank 0 after the
+build and after ``load``; the train step averages the gradients; the logged
+step metrics are the global means, reduced at log points only, and
+``train/steps_per_sec`` counts global steps; the validation loss sum and the
+metric suite's state are reduced once a pass; rank 0 alone logs, profiles,
+saves (the others wait for the save) and draws the examples. Every rank
+takes the same branches, from reduced values, so none waits forever. The
+stis gauge selection is hoisted on each rank from its own rows (the same
+mask on every rank).
 """
 
 from __future__ import annotations
@@ -45,10 +57,12 @@ import torch
 
 from ..config import flatten_dict
 from ..data.datamodule import P2IDataModule
-from ..inference.driver import resolve_device, set_precision_policy
+from ..inference.driver import set_precision_policy
 from ..models import build_discriminator, build_generator
+from ..ops import cuda_lib
 from ..ops.decode_mask import decode_normalize_mask
-from ..utils.tracking import get_tracker
+from ..parallel.mesh import create_mesh
+from ..utils.tracking import NullTracker, get_tracker
 from .checkpoint import load_checkpoint_raw, save_checkpoint
 from .steps import build_eval_step, build_predict_fn, build_train_step, make_optimizer
 
@@ -71,7 +85,8 @@ def device_busy_us(prof) -> float:
 class Trainer:
     def __init__(self, cfg: Dict[str, Any], device: str | torch.device = "cuda"):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = create_mesh(device)
+        self.device = self.mesh.device
         set_precision_policy()
         self.seed = cfg.get("seed", 42)
         train_cfg = cfg.get("train", {})
@@ -85,6 +100,11 @@ class Trainer:
         self.data_module = P2IDataModule(cfg)
         self.train_loader = self.data_module.train_dataloader()
         self.val_loader = self.data_module.val_dataloader()
+        for loader in (self.train_loader, self.val_loader):
+            if loader is not None:
+                loader.rank, loader.world = self.mesh.rank, self.mesh.world
+        if self.train_loader is not None and self.mesh.world > 1:
+            self.train_loader.drop_last = True
         self.run_validation = bool(train_cfg.get("use_validation", True))
         logging.info("Data loaders ready | train=%s, val=%s",
                      len(self.train_loader) if self.train_loader else 0,
@@ -107,6 +127,9 @@ class Trainer:
         self.opt_d = (make_optimizer(opt_cfg, self.discriminator.parameters())
                       if self.discriminator is not None else None)
         self.k1_alpha = cfg["loss"].get("k1_weight", 0.0)
+        self._broadcast_state()
+        if self.mesh.distributed and self.device.type == "cuda":
+            self.mesh.main_first(cuda_lib.library)
 
         self.save_dir = Path(cfg.get("save_dir", "weights"))
         self.save_dir.mkdir(parents=True, exist_ok=True)
@@ -139,7 +162,7 @@ class Trainer:
             and getattr(self.generator, "idw_factored", False)
             and getattr(self.generator, "idw_shared_batch_mask", False)
             and hasattr(self.generator, "prepare_idw"))
-        self.tracker = get_tracker()
+        self.tracker = get_tracker() if self.mesh.is_main else NullTracker()
         self.profile_dir = train_cfg.get("profile_dir")
         self.profile_start = int(train_cfg.get("profile_start_step", 2))
         self.profile_steps = int(train_cfg.get("profile_steps", 3))
@@ -152,10 +175,18 @@ class Trainer:
         self.last_rec_loss = self.last_adv_loss = self.last_dis_loss = float("nan")
 
     # ------------------------------------------------------------------
+    def _broadcast_state(self) -> None:
+        """Rank 0's models and optimizer states on every rank."""
+        for module, opt in ((self.generator, self.opt_g),
+                            (self.discriminator, self.opt_d)):
+            if module is not None:
+                self.mesh.broadcast_module(module)
+                self.mesh.broadcast_optimizer(opt)
+
     def _build_steps(self, idw_prepared=None) -> None:
         self.train_step = build_train_step(
             self.generator, self.discriminator, self.opt_g, self.opt_d,
-            idw_prepared=idw_prepared, **self._step_kwargs)
+            idw_prepared=idw_prepared, mesh=self.mesh, **self._step_kwargs)
         self.eval_step = build_eval_step(self.generator, k1_alpha=self.k1_alpha,
                                          idw_prepared=idw_prepared)
         self.predict_fn = build_predict_fn(self.generator, idw_prepared=idw_prepared)
@@ -323,6 +354,7 @@ class Trainer:
                     self.tracker.log_artifact(str(best))
                     logging.info("New best model saved at %s (val_loss=%.4f)",
                                  best, self.best_val)
+                self.mesh.barrier()  # the others resume after rank 0's save
                 self._log_examples(self.val_loader, prefix="val", epoch=epoch)
                 if self.global_step >= self.max_steps:
                     logging.info("Reached max steps (%d). Stopping.", self.max_steps)
@@ -346,7 +378,8 @@ class Trainer:
             if steps == 1:
                 logging.info("Batch shapes | frames=%s", tuple(frames.shape))
             if self.global_step % self.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}  # syncs the device
+                # the global means; float() syncs the device
+                m = {k: float(v) for k, v in self.mesh.mean_values(metrics).items()}
                 now = time.perf_counter()
                 self.log_times.append((self.global_step, now))
                 sps = steps / max(now - t0, 1e-6)
@@ -368,7 +401,7 @@ class Trainer:
         if self._profiler is not None:
             self._stop_profile()
         denom = max(1, steps)
-        running = {k: float(v) for k, v in running.items()}
+        running = {k: float(v) for k, v in self.mesh.mean_values(running).items()}
         self.last_rec_loss = running["rec"] / denom
         self.last_adv_loss = running["adv"] / denom
         self.last_dis_loss = running["dis"] / denom
@@ -377,7 +410,11 @@ class Trainer:
     def _evaluate_rec_loss(self, loader) -> float:
         """Mean validation loss; with ``train.eval_metrics`` the metric suite
         also accumulates every batch's prediction on the device and each of
-        its keys is logged as ``val/<key>``."""
+        its keys is logged as ``val/<key>``. Over several ranks each takes its
+        rows of a batch (the batch mean is the mean of the ranks' means) and
+        the loss sum and the suite's state are reduced once; a batch every
+        rank holds whole (its size does not divide) enters the suite on rank
+        0 only."""
         if loader is None:
             return 0.0
         suite = None
@@ -385,14 +422,19 @@ class Trainer:
             from ..metrics import MetricConfig, RainfallMetricSuite
 
             suite = RainfallMetricSuite(MetricConfig(), device=self.device)
+        whole = [size % self.mesh.world != 0 for size in loader.global_sizes()]
         total, batches = 0.0, 0
-        for batch in loader:
+        for batch, replicated in zip(loader, whole):
             frames, masked, masks = self._put_batch(batch)
             total += float(self.eval_step(frames, masked, masks))
-            if suite is not None:
+            if suite is not None and (self.mesh.is_main or not replicated):
                 suite.update(self.predict_fn(masked, masks), frames)
             batches += 1
+        if self.mesh.distributed:
+            total = float(self.mesh.mean_(torch.tensor(total, dtype=torch.float64,
+                                                       device=self.device)))
         if suite is not None:
+            suite.state = suite.all_reduce_state(suite.state, self.mesh)
             for key, value in suite.compute().items():
                 self.tracker.log_metric(f"val/{key}", value, step=self.global_step)
         return total / max(1, batches)
@@ -403,8 +445,9 @@ class Trainer:
         (reference train.py:384-466), written as
         ``save_dir/artifacts/{prefix}_epoch{epoch}_batch{b}_ex{idx}.png`` and
         logged as artifacts. The loader's epoch counter is restored, so the
-        examples do not move the training data's shuffle and mask stream."""
-        if loader is None:
+        examples do not move the training data's shuffle and mask stream.
+        Rank 0 alone draws them, from its rows: a batch's first sample."""
+        if loader is None or not self.mesh.is_main:
             return
         from ..metrics.plots import example_image
 
@@ -432,7 +475,7 @@ class Trainer:
     # -- profiling -------------------------------------------------------
     def _maybe_start_profile(self) -> None:
         if (not self.profile_dir or self._profiler is not None or self._profile_done
-                or self.global_step < self.profile_start):
+                or self.global_step < self.profile_start or not self.mesh.is_main):
             return
         from torch.profiler import ProfilerActivity, profile
 
@@ -492,6 +535,9 @@ class Trainer:
                 "extra": {k: v for k, v in state.items() if k not in names}}
 
     def _save(self, path: Path, epoch: int) -> None:
+        """Rank 0 writes the checkpoint (every rank holds the same state)."""
+        if not self.mesh.is_main:
+            return
         payload = {
             "epoch": epoch,
             "global_step": self.global_step,
@@ -506,7 +552,8 @@ class Trainer:
 
     def load(self, path: str | Path) -> None:
         """Resume the training state (weights, optimizers, counters) from a
-        checkpoint this trainer wrote."""
+        checkpoint this trainer wrote; every rank reads it, then takes rank
+        0's state."""
         raw = load_checkpoint_raw(path)
         if not isinstance(raw, dict) or "optimizer_g" not in raw:
             raise ValueError(f"{path} holds no training state (optimizer_g): "
@@ -522,6 +569,7 @@ class Trainer:
         self.start_epoch = int(raw.get("epoch", 0))
         if "best_val" in raw:
             self.best_val = float(raw["best_val"])
+        self._broadcast_state()
         logging.info("Resumed from %s | global_step=%d epoch=%d best_val=%s",
                      path, self.global_step, self.start_epoch,
                      f"{self.best_val:.4f}" if self.best_val != float("inf") else "inf")

@@ -13,6 +13,7 @@ The port's own copy of ``p2igan_tpu/utils/tracking.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -130,6 +131,31 @@ class FileTracker:
         src = Path(local_path)
         if src.exists():
             shutil.copy2(src, self.run_dir / "artifacts" / src.name)
+
+
+class NullTracker:
+    """The tracker of a data-parallel rank other than 0: it records nothing
+    (rank 0 logs the global values)."""
+
+    run_dir: Optional[Path] = None
+
+    def set_tracking_uri(self, uri: str) -> None:
+        pass
+
+    def set_experiment(self, name: str) -> None:
+        pass
+
+    def start_run(self, run_name: Optional[str] = None):
+        return contextlib.nullcontext()
+
+    def log_params(self, params: Dict[str, Any]) -> None:
+        pass
+
+    def log_metric(self, key: str, value: float, step: Optional[int] = None) -> None:
+        pass
+
+    def log_artifact(self, local_path: str) -> None:
+        pass
 
 
 _FILE_TRACKER = FileTracker(os.environ.get("P2IGAN_TRACKING_DIR", "mlruns-lite"))

@@ -5,6 +5,12 @@
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is available; pass
 ``--device cpu`` to run the plain PyTorch path on the CPU.
+
+Over N GPUs of one host (one process a GPU, NCCL), event batches' windows
+dealt to the ranks, rank 0 writing the store:
+
+    torchrun --nproc_per_node N scripts/infer_torch.py --config <eval.json> \
+        --checkpoint <gen.pt> --output out.zarr --batch-events 2
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from p2igan_tpu_torch.config import load_config
 from p2igan_tpu_torch.inference.driver import run_inference
+from p2igan_tpu_torch.parallel import shutdown
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,23 +87,26 @@ def main(args: Optional[argparse.Namespace] = None) -> Path:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
-    return run_inference(
-        cfg,
-        checkpoint=str(parsed.checkpoint) if parsed.checkpoint else None,
-        model_dir=str(parsed.model_dir) if parsed.model_dir else None,
-        data_root=str(parsed.data_root) if parsed.data_root else None,
-        output=str(parsed.output) if parsed.output else None,
-        passes=parsed.passes,
-        stride=parsed.stride,
-        overlap=parsed.overlap,
-        output_scale=parsed.output_scale,
-        overwrite=parsed.overwrite,
-        log_every=parsed.log_every,
-        window_batch=parsed.window_batch,
-        batch_events=parsed.batch_events,
-        config_path=str(parsed.config),
-        device=parsed.device,
-    )
+    try:
+        return run_inference(
+            cfg,
+            checkpoint=str(parsed.checkpoint) if parsed.checkpoint else None,
+            model_dir=str(parsed.model_dir) if parsed.model_dir else None,
+            data_root=str(parsed.data_root) if parsed.data_root else None,
+            output=str(parsed.output) if parsed.output else None,
+            passes=parsed.passes,
+            stride=parsed.stride,
+            overlap=parsed.overlap,
+            output_scale=parsed.output_scale,
+            overwrite=parsed.overwrite,
+            log_every=parsed.log_every,
+            window_batch=parsed.window_batch,
+            batch_events=parsed.batch_events,
+            config_path=str(parsed.config),
+            device=parsed.device,
+        )
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

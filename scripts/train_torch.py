@@ -5,6 +5,11 @@
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is available; pass
 ``--device cpu`` to run the plain PyTorch path on the CPU.
+
+Data parallel over N GPUs of one host (one process a GPU, NCCL; the batch
+size in the config is the global batch, each rank takes a N-th of it):
+
+    torchrun --nproc_per_node N scripts/train_torch.py --config <cfg.json>
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from p2igan_tpu_torch.config import load_config
+from p2igan_tpu_torch.parallel import shutdown
 from p2igan_tpu_torch.training.trainer import Trainer
 from p2igan_tpu_torch.utils.tracking import get_tracker, setup_logging
 
@@ -83,10 +89,13 @@ def main(args: Optional[argparse.Namespace] = None) -> Trainer:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
-    trainer = Trainer(config, device=parsed.device)
-    if parsed.resume is not None:
-        trainer.load(parsed.resume)
-    trainer.train()
+    try:
+        trainer = Trainer(config, device=parsed.device)
+        if parsed.resume is not None:
+            trainer.load(parsed.resume)
+        trainer.train()
+    finally:
+        shutdown()
     return trainer
 
 

@@ -67,6 +67,11 @@ def test_the_evaluation_path_is_among_the_scanned_files(name):
     assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
 
 
+@pytest.mark.parametrize("name", ["parallel/__init__.py", "parallel/mesh.py"])
+def test_the_parallel_package_is_among_the_scanned_files(name):
+    assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
+
+
 @pytest.mark.parametrize("name", ["make_fake_data_torch.py", "convergence_smoke_torch.py"])
 def test_the_new_scripts_are_among_the_scanned_files(name):
     assert REPO / "scripts" / name in PORT_FILES
