@@ -199,6 +199,29 @@
      where the machine has several cards, the same over NCCL on min(cards, 4)
      of them (else it prints that this did not run); the global steps/s of 1
      and 2 ranks and the phase's seconds.
+9b. The reduced-precision options and JAX checkpoints (``reduced_precision``,
+   ``jax_checkpoint``):
+   - #3's bf16 instantiation at the three serving pyramid shapes, bitwise its
+     plain version (``max_pool2d`` -> ``repeat_interleave`` on bf16) forward
+     (NaN and +-0 included) and backward, its device time (CUDA graph, input
+     copies that leave L2) beside the float32 kernel's and its bytes bound
+     (half the float32 bytes);
+   - p2igan stis serving with ``compute_dtype`` bfloat16: the 2 events of 64
+     frames, window batch 8, through ``load_generator`` and
+     ``SlidingWindowReconstructor`` (the option has no config key, as in the
+     JAX package), float32 and bf16 in turns (f32, bf16, bf16, f32): events/s
+     of each, the bf16 store's RMSE and largest difference against the
+     float32 one on the x255 scale, #3's bf16 launches; dk the same;
+   - the stis GAN at batch 12 through ``scripts/train_torch.py`` with
+     ``model.disc_branch3d_dtype`` float32, then bfloat16: 5 steps each from
+     the same seed, steps/s and every step's dis_loss and rec_loss, all
+     finite;
+   - the committed JAX trainer checkpoint (``tests/fixtures/jax_ckpt``, no
+     flax or msgpack here): its event served through ``scripts/infer_torch.py``
+     bitwise the store served from the torch .pt the port writes after
+     loading it, and 2 rec-loss steps resumed through
+     ``scripts/train_torch.py --resume`` whose restored global_step, epoch and
+     nu are the checkpoint's.
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time, null only for #9, whose chain fits in no card's memory at
@@ -424,6 +447,7 @@ def bound(nbytes: float, flops: float) -> dict:
 def reset_launches() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    maxpool2_duplicate.bf16_launches = 0
 
 
 def read_launches() -> dict:
@@ -431,7 +455,9 @@ def read_launches() -> dict:
 
 
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    """Same shape and bits (float32 or bfloat16 tensors)."""
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
 
 
 def gauge_masks(dev):
@@ -1465,12 +1491,16 @@ def train(tmp: Path, card: str, dev) -> dict:
 
 def stis_rate(tmp: Path, dev, label: str, deterministic: bool) -> tuple:
     """(GAN steps/s, latest.ckpt) of the stis GAN (device_decode off, 5
-    warm-up + 10 timed steps) with cuDNN's deterministic flag as given: the
+    warm-up + 10 timed steps, no validation pass) with cuDNN's deterministic
+    flag as given: the
     trainer's precision policy sets it, so for ``deterministic`` False the
     policy is wrapped for this run only (a measurement, not a program
     switch)."""
     train_torch = load_script("train_torch")
     cfg = write_train_tree(tmp)
+    # the epoch's validation pass runs after the timed steps and is checked
+    # by the training phases: left out here
+    cfg["train"]["use_validation"] = False
     cfg["save_dir"] = str(tmp / f"weights_{label}")
     cfg_path = tmp / f"train_{label}.json"
     cfg_path.write_text(json.dumps(cfg))
@@ -3353,6 +3383,252 @@ def profile_report(prof: Path) -> str:
             f"self CUDA %, CUDA total, CUDA avg, calls):\n  " + "\n  ".join(rows))
 
 
+# -- the reduced-precision options and JAX checkpoints ------------------------
+
+FIXTURE = REPO / "tests" / "fixtures" / "jax_ckpt"
+GAN_DTYPE_STEPS = 5
+
+
+def check_pool_dup_bf16(dev, card: str) -> dict:
+    """#3's bf16 instantiation at the three serving pyramid shapes: bitwise
+    its plain version forward (NaN and +-0 included, NaN payloads kept) and
+    backward (the plain VJP in both); the device time of the three (``graph_ms``) beside the float32
+    kernel's on the same values and the bf16 chain's; the bytes bound: half
+    the float32 bytes."""
+    gen = torch.Generator().manual_seed(SEED)
+    ms = ms32 = chain_ms = 0.0
+    elems = 0
+    for shape in POOL_SHAPES:
+        x = torch.randn(shape, generator=gen)
+        x.view(-1)[::7] = 0.0
+        x.view(-1)[1::11] = -0.0
+        x.view(-1)[3::101] = float("nan")
+        x32 = x.to(dev)
+        xb = x32.to(torch.bfloat16)
+        xb.view(-1)[5::211] = float("nan")  # and NaNs of the card's bf16 conversion
+        if not bitwise_equal(maxpool2_duplicate(xb), maxpool2_duplicate_reference(xb)):
+            fail(f"maxpool2_duplicate bf16 not bitwise equal at {shape}")
+        xa, xr = xb.clone().requires_grad_(True), xb.clone().requires_grad_(True)
+        gy = torch.randn((shape[0], 2 * shape[1], shape[2] // 2, shape[3] // 2),
+                         device=dev).to(torch.bfloat16)
+        maxpool2_duplicate(xa).backward(gy)
+        maxpool2_duplicate_reference(xr).backward(gy)
+        if not bitwise_equal(xa.grad, xr.grad):
+            fail(f"maxpool2_duplicate bf16 gradient not bitwise equal at {shape}")
+        xs = [xb] + [xb.clone() for _ in range(-(-ROTATE_BYTES // (3 * xb.numel())))]
+        x32s = [x32] + [x32.clone() for _ in range(-(-ROTATE_BYTES // (6 * x32.numel())))]
+        ms += graph_ms(lambda i: maxpool2_duplicate(xs[i]), len(xs))
+        chain_ms += graph_ms(lambda i: maxpool2_duplicate_reference(xs[i]), len(xs))
+        ms32 += graph_ms(lambda i: maxpool2_duplicate(x32s[i]), len(x32s))
+        elems += x.numel()
+        del xs, x32s
+    b_ = bound(2 * elems * 1.5, elems * 0.75)
+    print(f"maxpool2_duplicate bf16, the three serving shapes: bitwise its plain version "
+          f"forward (NaN, +-0) and backward; device {ms:.4f} ms (float32 kernel "
+          f"{ms32:.4f} ms, {ms32 / ms:.2f}x; bf16 chain {chain_ms:.4f} ms); bytes bound "
+          f"{b_['bound_ms']:.5f} ms, {b_['bound_ms'] / ms:.3f} of it; on {card}")
+    return {"bitwise": True, "ms": ms, "plain_ms": chain_ms, "float32_ms": ms32,
+            "bound_ms": b_["bound_ms"], "bound_by": b_["bound_by"]}
+
+
+def top_kernels(fn, label: str, card: str, n: int = 6) -> None:
+    """One call of ``fn`` under torch.profiler: its device time and the ``n``
+    kernels that take the most of it, with their shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(r.key, r.self_device_time_total / 1e3) for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(ms for _, ms in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:n]
+    print(f"{label} on {card}: {total:.3f} ms of device time; "
+          + "; ".join(f"{key[:70]} {ms:.3f} ms ({ms / total:.1%})" for key, ms in top))
+
+
+def serving_events(tmp: Path, mask_file: Path) -> tuple:
+    """The serving phase's events (E, 64, H, W, 1) normalised, and their gauge
+    mask, as the driver feeds them."""
+    store = zarrlite.open(tmp / "test_events.zarr", mode="r")
+    ev = np.stack([store[key][:] for key in store.array_keys()])[..., None]
+    ev = ev.astype(np.float32) / 255.0
+    mask = np.loadtxt(mask_file).astype(np.float32)
+    masks = np.broadcast_to(mask[None, None, :, :, None], ev.shape).astype(np.float32)
+    return ev * masks, masks
+
+
+def serve_dtypes(tmp: Path, card: str, dev, model: str, cfg_path: Path,
+                 checkpoint: Path, required) -> dict:
+    """The events served by the float32 generator and by the same one with
+    ``compute_dtype`` bfloat16 (window batch 8), in turns f32, bf16, bf16,
+    f32 in this process: events/s of each (the median of its two runs), the
+    bf16 store against the float32 one on the x255 scale, and the launches
+    of the second bf16 run."""
+    cfg = load_config(cfg_path)
+    masked, masks = serving_events(tmp, Path(cfg["data"]["test"]["mask"]["file"]))
+    recons = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        gen = load_generator(cfg, checkpoint, dev)
+        gen.compute_dtype = dtype
+        recons[name] = SlidingWindowReconstructor(gen, stride=16, overlap=12,
+                                                  window_batch=WINDOW_BATCH)
+    secs, outs, launches_bf16 = {"float32": [], "bfloat16": []}, {}, {}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = recons[name].batch(masked, masks)
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        if name == "bfloat16":
+            launches_bf16 = read_launches()
+            launches_bf16["maxpool2_duplicate bf16"] = maxpool2_duplicate.bf16_launches
+    rate = {k: EVENTS / statistics.median(v) for k, v in secs.items()}
+    for name, recon in recons.items():  # where an event's device time goes
+        top_kernels(lambda: recon.batch(masked[:1], masks[:1]), f"{model} {name}, one event",
+                    card)
+    err = outs["bfloat16"].astype(np.float64) - outs["float32"]
+    rmse, worst = float(np.sqrt((err ** 2).mean())), float(np.abs(err).max())
+    for name, out in outs.items():
+        if out.shape != (EVENTS, EVENT_FRAMES, H, W, 1) or not np.isfinite(out).all():
+            fail(f"{model} {name} serving gave {out.shape}, finite {np.isfinite(out).all()}")
+    for name in required:
+        if launches_bf16[name] <= 0:
+            fail(f"{model} bf16 serving launched no {name}")
+    RATES[f"{model} serving bf16"] = rate["bfloat16"]
+    print(f"{model} serving, {EVENTS} events x {EVENT_FRAMES} frames, window batch "
+          f"{WINDOW_BATCH} (reconstruction alone, f32 bf16 bf16 f32): float32 "
+          f"{rate['float32']:.4f} events/s, compute_dtype bfloat16 {rate['bfloat16']:.4f} "
+          f"events/s ({rate['bfloat16'] / rate['float32']:.3f}x) on {card}; bf16 vs "
+          f"f32 (x255 scale): rmse {rmse:.4f}, max abs {worst:.4f} (max value "
+          f"{float(outs['float32'].max()):.3f}); bf16 launches {launches_bf16}")
+    return launches_bf16
+
+
+def gan_critic_dtypes(tmp: Path, card: str, dev) -> dict:
+    """The stis GAN (batch 12) through scripts/train_torch.py with
+    ``model.disc_branch3d_dtype`` float32, then bfloat16: GAN_DTYPE_STEPS
+    steps each from the same seed and data, steps/s over steps 2-5, every
+    step's dis_loss and rec_loss (all finite)."""
+    train_torch = load_script("train_torch")
+    base = write_train_tree(tmp)
+    out = {}
+    for d3d in ("float32", "bfloat16"):
+        cfg = json.loads(json.dumps(base))
+        cfg["model"]["disc_branch3d_dtype"] = d3d
+        cfg["train"].update(iterations=GAN_DTYPE_STEPS, log_step=1, use_validation=False)
+        cfg["save_dir"] = str(tmp / f"weights_d3d_{d3d}")
+        cfg_path = tmp / f"train_d3d_{d3d}.json"
+        cfg_path.write_text(json.dumps(cfg))
+        reset_launches()
+        trainer = train_torch.main(train_torch.parse_args(
+            ["--config", str(cfg_path), "--device", dev.type, "--log-level", "WARNING"]))
+        torch.cuda.synchronize()
+        if trainer.discriminator.branch3d_dtype != getattr(torch, d3d):
+            fail(f"the critic's 3-D branch runs in {trainer.discriminator.branch3d_dtype}")
+        logged = read_logged(get_tracker().run_dir, prefix="train/")
+        dis = [float.fromhex(v) for v in logged["train/dis_loss"]]
+        rec = [float.fromhex(v) for v in logged["train/rec_loss"]]
+        if len(dis) != GAN_DTYPE_STEPS or not np.isfinite(dis + rec).all():
+            fail(f"critic {d3d}: dis_loss {dis}, rec_loss {rec}")
+        (s0, t_0), (s1, t_1) = trainer.log_times[0], trainer.log_times[-1]
+        sps = (s1 - s0) / (t_1 - t_0)
+        RATES[f"p2igan stis GAN critic 3-D {d3d}"] = sps
+        out[d3d] = sps
+        print(f"stis GAN, critic 3-D branch {d3d}: {sps:.4f} GAN steps/s over steps "
+              f"{s0 + 1}-{s1} at batch {TRAIN_BATCH} on {card}; dis_loss "
+              + " ".join(f"{v:.6f}" for v in dis) + "; rec_loss "
+              + " ".join(f"{v:.6f}" for v in rec))
+    print(f"stis GAN, critic 3-D branch bf16 / float32: "
+          f"{out['bfloat16'] / out['float32']:.3f}x steps/s on {card}")
+    return out
+
+
+def reduced_precision(tmp: Path, card: str, dev, cfg_path: Path, checkpoint: Path) -> dict:
+    """The three bf16 options on the card (module docstring, 9b); returns the
+    launches of the p2igan bf16 serving run."""
+    t0 = time.perf_counter()
+    launches = serve_dtypes(tmp, card, dev, "p2igan", cfg_path, checkpoint,
+                            SERVING_KERNELS + ("maxpool2_duplicate bf16",))
+    gan_critic_dtypes(tmp, card, dev)
+    dk_cfg, dk_ckpt = write_dk_serving(tmp, "dk")
+    serve_dtypes(tmp, card, dev, "dk", dk_cfg, dk_ckpt, ("mlp_tail_fused",))
+    print(f"reduced-precision phase: {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
+def jax_checkpoint(tmp: Path, card: str, dev) -> None:
+    """The committed JAX trainer checkpoint on the card, with no flax or
+    msgpack: its event served through scripts/infer_torch.py, bitwise the
+    store served from the torch .pt the port writes after loading it; 2
+    rec-loss steps resumed through scripts/train_torch.py, the restored
+    counters and nu the checkpoint's."""
+    t0 = time.perf_counter()
+    root = tmp / "jax_ckpt"
+    root.mkdir()
+    cfg = json.loads((FIXTURE / "config.json").read_text().replace("<root>", str(root)))
+    fake.write_train_zarr(root / "train.zarr", n_events=1, T=19, H=H, W=W, window=LENGTH,
+                          stride=1, seed=0)
+    fake.write_test_zarr(root / "test.zarr", n_events=1, T=EVENT_FRAMES, H=H, W=W, seed=2)
+    fake.write_gauge_mask(root / "gauges.txt", H=H, W=W, n_gauges=79, seed=1)
+    ckpt = FIXTURE / "latest.ckpt"
+    before = set(sys.modules)
+    raw = load_checkpoint_raw(ckpt)
+    loaded = {m for m in set(sys.modules) - before if m.split(".")[0] in ("flax", "msgpack")}
+    if loaded:
+        fail(f"decoding the JAX checkpoint imported {sorted(loaded)}")
+    cfg_path = root / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    gen = load_generator(cfg, ckpt, dev, fold_weights=False)
+    torch.save(gen.state_dict(), root / "gen.pt")
+    infer_torch = load_script("infer_torch")
+    stores = []
+    for name, path in (("jax", ckpt), ("pt", root / "gen.pt")):
+        stores.append(infer_torch.main(infer_torch.parse_args([
+            "--config", str(cfg_path), "--checkpoint", str(path), "--output",
+            str(root / f"served_{name}.zarr"), "--window-batch", str(WINDOW_BATCH),
+            "--device", dev.type, "--log-level", "WARNING"])))
+    if not stores_equal(*stores):
+        fail("the store served from the JAX checkpoint differs from the .pt's")
+    ev = zarrlite.open(stores[0], mode="r")["event_01"][:]
+    if ev.shape != (EVENT_FRAMES, H, W, 1) or not np.isfinite(ev).all():
+        fail(f"the JAX checkpoint's store: {ev.shape}")
+    train_torch = load_script("train_torch")
+    cfg["train"].update(iterations=4, max_epochs=2)
+    cfg_path.write_text(json.dumps(cfg))
+    argv = ["--config", str(cfg_path), "--device", dev.type, "--log-level", "WARNING"]
+    restored = {}
+    load = trainer_module.Trainer.load
+
+    def recording_load(self, path):
+        load(self, path)
+        restored.update(step=self.global_step, epoch=self.start_epoch, nu={
+            n: self.opt_g.state[p]["nu"].cpu() for n, p in self.generator.named_parameters()})
+
+    trainer_module.Trainer.load = recording_load
+    try:
+        trainer = train_torch.main(train_torch.parse_args(argv + ["--resume", str(ckpt)]))
+    finally:
+        trainer_module.Trainer.load = load
+    from p2igan_tpu_torch.models.convert import params_from_jax
+
+    want_nu = params_from_jax(trainer.generator, raw["optimizer_g"]["0"]["nu"])
+    if (restored["step"], restored["epoch"]) != (raw["global_step"], raw["epoch"]):
+        fail(f"restored step/epoch {restored['step']}, {restored['epoch']}")
+    if any(not torch.equal(restored["nu"][n], want_nu[n]) for n in want_nu):
+        fail("the restored nu differs from the JAX checkpoint's")
+    if trainer.global_step != 4 or not np.isfinite(trainer.last_rec_loss):
+        fail(f"the resumed run ended at step {trainer.global_step}")
+    print(f"JAX trainer checkpoint ({ckpt.stat().st_size} bytes, simple base 4, "
+          f"{H}x{W}x{LENGTH}; no flax, no msgpack): served its event bitwise the "
+          f"store of the .pt written from it; resumed at step {restored['step']}, "
+          f"epoch {restored['epoch']}, nu bitwise the checkpoint's "
+          f"({len(want_nu)} tensors), to step {trainer.global_step} (rec loss "
+          f"{trainer.last_rec_loss:.4f}) on {card}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3391,6 +3667,7 @@ def main() -> int:
                "mlp_tail_bwd": check_mlp_tail_bwd(dev),
                "enc0_conv3d_leaky": check_enc0(dev),
                "conv3d_cout1_sigmoid": check_dec2(dev)}
+    pool_bf16 = check_pool_dup_bf16(dev, card)
     check_gauge_topk_batched(dev)
     time_input_block(dev)
     time_conv_layouts(dev)
@@ -3436,6 +3713,10 @@ def main() -> int:
         deterministic_cudnn_cost(tmp, card, dev)
         print(f"repeat phase: {time.perf_counter() - t0:.1f} s")
         data_parallel(tmp, card, cfg_path, checkpoint)
+        paths["p2igan serving bf16"] = reduced_precision(tmp, card, dev, cfg_path, checkpoint)
+        pool_bf16["launches"] = paths["p2igan serving bf16"]["maxpool2_duplicate bf16"]
+        results["maxpool2_duplicate"]["bf16"] = pool_bf16
+        jax_checkpoint(tmp, card, dev)
         host_loader_rate(tmp, write_train_tree(tmp, DK_FAMILY["dk"][1]), "stis gauge file")
         for model in DK_FAMILY:
             cfg_path, checkpoint = write_dk_serving(tmp, model)

@@ -26,20 +26,44 @@
 // The compares follow PyTorch's max_pool2d (window in row-major order, replace
 // when greater or NaN, starting from -inf), so the output is bitwise equal to
 // F.max_pool2d + repeat_interleave, including NaN and signed-zero cases.
+//
+// The kernel is a template on the element type: float32, and bfloat16 for the
+// generator's bf16 compute dtype (the JAX package sends a bf16 pyramid to
+// XLA's max pool; here it stays on this kernel). As in PyTorch's own pool, a
+// bf16 element is compared as the float it widens to exactly, and the element
+// chosen is stored as it is, NaN payloads included (PyTorch 2.11 keeps them:
+// measured on the H100), so a max stays exact in either type. The bf16 form
+// moves half the bytes: its vector form reads 8 bytes (4 elements) from each
+// of the two rows and writes 4 bytes (2 outputs) to each duplicated plane;
+// its narrow form reads 4 bytes a row and writes one 2-byte output a plane.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float take_max(float m, float v) {
-  return (v > m || isnan(v)) ? v : m;
+// n elements of T loaded or stored as one access of n * sizeof(T) bytes
+template <typename T, int n>
+struct alignas(sizeof(T) * n) Vec {
+  T v[n];
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T take_max(T m, T v) {
+  const float fv = widen(v);
+  return (fv > widen(m) || isnan(fv)) ? v : m;
 }
 
-__device__ __forceinline__ float window_max(float a, float b, float c, float d) {
-  float m = -INFINITY;
-  m = take_max(m, a);
+template <typename T>
+__device__ __forceinline__ T window_max(T a, T b, T c, T d) {
+  // PyTorch starts from -inf and takes a unless it is -inf itself: the same
+  // bits either way, so start from a
+  T m = a;
   m = take_max(m, b);
   m = take_max(m, c);
   m = take_max(m, d);
@@ -47,10 +71,10 @@ __device__ __forceinline__ float window_max(float a, float b, float c, float d) 
 }
 
 // grid: x = column-group blocks (times the plane split), y = output-row
-// blocks, z = plane blocks / split. A thread covers 2 (with float4 loads) or 1
-// output columns of one output row of one (n, c) plane.
-template <bool kVec4>
-__global__ void pool_dup_kernel(const float* __restrict__ x, float* __restrict__ out,
+// blocks, z = plane blocks / split. A thread covers 2 (with the 4-element
+// loads) or 1 output columns of one output row of one (n, c) plane.
+template <typename T, bool kVec4>
+__global__ void pool_dup_kernel(const T* __restrict__ x, T* __restrict__ out,
                                 int C, int H, int W, int groups, int gx_blocks,
                                 int NC) {
   const int gx = blockIdx.x % gx_blocks;  // 32-bit, once a block
@@ -63,36 +87,34 @@ __global__ void pool_dup_kernel(const float* __restrict__ x, float* __restrict__
   if (nc >= NC || g >= groups || yo >= Ho) return;
   const int n = nc / C;  // once a thread, 32-bit
   const int c = nc - n * C;
-  const float* src = x + static_cast<size_t>(nc) * H * W + (2 * yo) * W;
+  const T* src = x + static_cast<size_t>(nc) * H * W + (2 * yo) * W;
   const size_t plane_out = static_cast<size_t>(Ho) * Wo;
-  float* dst = out + (static_cast<size_t>(n) * 2 * C + 2 * c) * plane_out + yo * Wo;
+  T* dst = out + (static_cast<size_t>(n) * 2 * C + 2 * c) * plane_out + yo * Wo;
   if (kVec4) {
-    const float4 a = *reinterpret_cast<const float4*>(src + 4 * g);
-    const float4 b = *reinterpret_cast<const float4*>(src + W + 4 * g);
-    const float2 m = make_float2(window_max(a.x, a.y, b.x, b.y),
-                                 window_max(a.z, a.w, b.z, b.w));
-    *reinterpret_cast<float2*>(dst + 2 * g) = m;
-    *reinterpret_cast<float2*>(dst + plane_out + 2 * g) = m;
+    const Vec<T, 4> a = *reinterpret_cast<const Vec<T, 4>*>(src + 4 * g);
+    const Vec<T, 4> b = *reinterpret_cast<const Vec<T, 4>*>(src + W + 4 * g);
+    Vec<T, 2> m;
+    m.v[0] = window_max(a.v[0], a.v[1], b.v[0], b.v[1]);
+    m.v[1] = window_max(a.v[2], a.v[3], b.v[2], b.v[3]);
+    *reinterpret_cast<Vec<T, 2>*>(dst + 2 * g) = m;
+    *reinterpret_cast<Vec<T, 2>*>(dst + plane_out + 2 * g) = m;
   } else {
-    const float2 a = *reinterpret_cast<const float2*>(src + 2 * g);
-    const float2 b = *reinterpret_cast<const float2*>(src + W + 2 * g);
-    const float m = window_max(a.x, a.y, b.x, b.y);
+    const Vec<T, 2> a = *reinterpret_cast<const Vec<T, 2>*>(src + 2 * g);
+    const Vec<T, 2> b = *reinterpret_cast<const Vec<T, 2>*>(src + W + 2 * g);
+    const T m = window_max(a.v[0], a.v[1], b.v[0], b.v[1]);
     dst[g] = m;
     dst[plane_out + g] = m;
   }
 }
 
-}  // namespace
-
-// x (N, C, H, W) float32, 8-byte aligned, H and W even; out (N, 2C, H/2, W/2),
-// 8-byte aligned. Returns a cudaError_t.
-extern "C" int p2i_maxpool2_duplicate(const float* x, float* out, int N, int C,
-                                      int H, int W, void* stream) {
+template <typename T>
+int launch(const T* x, T* out, int N, int C, int H, int W, void* stream) {
+  const uintptr_t pair = 2 * sizeof(T);  // the narrow form's access
   if (N < 1 || C < 1 || H < 2 || W < 2 || (H | W) & 1 ||
-      reinterpret_cast<uintptr_t>(x) % 8 || reinterpret_cast<uintptr_t>(out) % 8) {
+      reinterpret_cast<uintptr_t>(x) % pair || reinterpret_cast<uintptr_t>(out) % pair) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * pair) == 0;
   const int groups = vec4 ? W / 4 : W / 2;  // threads a row
   int bx = 1;
   while (bx < groups && bx < 32) bx <<= 1;
@@ -108,9 +130,25 @@ extern "C" int p2i_maxpool2_duplicate(const float* x, float* out, int N, int C,
   const dim3 grid(gx_blocks * split, (Ho + by - 1) / by, (z_blocks + split - 1) / split);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec4) {
-    pool_dup_kernel<true><<<grid, block, 0, s>>>(x, out, C, H, W, groups, gx_blocks, NC);
+    pool_dup_kernel<T, true><<<grid, block, 0, s>>>(x, out, C, H, W, groups, gx_blocks, NC);
   } else {
-    pool_dup_kernel<false><<<grid, block, 0, s>>>(x, out, C, H, W, groups, gx_blocks, NC);
+    pool_dup_kernel<T, false><<<grid, block, 0, s>>>(x, out, C, H, W, groups, gx_blocks, NC);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (N, C, H, W) float32, 8-byte aligned, H and W even; out (N, 2C, H/2, W/2),
+// 8-byte aligned. Returns a cudaError_t.
+extern "C" int p2i_maxpool2_duplicate(const float* x, float* out, int N, int C,
+                                      int H, int W, void* stream) {
+  return launch(x, out, N, C, H, W, stream);
+}
+
+// The same on bfloat16: x and out 4-byte aligned.
+extern "C" int p2i_maxpool2_duplicate_bf16(const void* x, void* out, int N, int C,
+                                           int H, int W, void* stream) {
+  return launch(static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+                N, C, H, W, stream);
 }

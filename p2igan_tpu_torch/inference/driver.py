@@ -229,13 +229,14 @@ class SlidingWindowReconstructor:
 
 def load_generator(cfg: Dict[str, Any], checkpoint_path: str | Path,
                    device: torch.device, fold_weights: bool = True):
-    """The config's generator with the checkpoint's weights, folded for
-    serving (p2igan: DO-conv kernels composed once; dk/stdk: the fused tail
-    switched on, weights unchanged; simple: BatchNorm folded into the encoder
-    convolutions, enc0 and dec2 through the fused ops) unless ``fold_weights``
-    is off."""
+    """The config's generator with the checkpoint's weights (a torch
+    checkpoint, or a JAX trainer's: the counterpart of the JAX package's
+    ``variables_from_checkpoint``), folded for serving (p2igan: DO-conv
+    kernels composed once; dk/stdk: the fused tail switched on, weights
+    unchanged; simple: BatchNorm folded into the encoder convolutions, enc0
+    and dec2 through the fused ops) unless ``fold_weights`` is off."""
     gen = build_generator_for_inference(cfg, device=device)
-    gen.load_state_dict(load_generator_state(checkpoint_path))
+    gen.load_state_dict(load_generator_state(checkpoint_path, gen))
     gen.eval()
     return gen.fold_for_inference() if fold_weights else gen
 

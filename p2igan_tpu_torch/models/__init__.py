@@ -64,17 +64,12 @@ def build_discriminator(cfg: Dict[str, Any], device=None,
                         generator: Optional[torch.Generator] = None
                         ) -> nn.Module:
     """p2igan: the P2I discriminator, whose 2-D branch takes in_channels *
-    sample_length channels; ``model.disc_branch3d_dtype`` (a bf16 3-D branch in
-    the JAX package) is not ported: anything but float32 raises. Every other
-    family (simple, dk, stdk): the simple BatchNorm critic."""
-    if _model_name(cfg) != "p2igan":
-        return SimpleDiscriminator.from_config(cfg, device=device, generator=generator)
-    d3d = str(cfg.get("model", {}).get("disc_branch3d_dtype", "float32"))
-    if d3d != "float32":
-        raise NotImplementedError(
-            f"disc_branch3d_dtype={d3d!r} is not ported; the port's "
-            f"discriminator runs in float32")
-    return P2IDiscriminator.from_config(cfg, device=device, generator=generator)
+    sample_length channels and whose 3-D branch runs in
+    ``model.disc_branch3d_dtype`` ("float32" or "bfloat16"; any other value
+    raises). Every other family (simple, dk, stdk): the simple BatchNorm
+    critic."""
+    klass = P2IDiscriminator if _model_name(cfg) == "p2igan" else SimpleDiscriminator
+    return klass.from_config(cfg, device=device, generator=generator)
 
 
 __all__ = ["P2IGenerator", "P2IDiscriminator", "DKGenerator", "STDKGenerator",

@@ -10,15 +10,21 @@ to invert (the reference ships no simple critic checkpoint). Accounting is
 strict both ways: every flax leaf must be used and every state_dict key of the
 structure must be filled, else it raises. ``D_diag`` is a constant of the
 DO-conv and is not emitted.
+
+``module_state_from_jax`` and ``trainer_payload_from_jax`` take what a JAX
+trainer checkpoint holds (decoded without flax by ``utils/flax_msgpack.py``)
+to the port's modules, optimizers and trainer payload, for serving and resume.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..training.steps import AdamNoMu
 
 
 class _Exporter:
@@ -185,6 +191,74 @@ def simple_disc_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torc
     return _with_stats(variables, _simple_disc_params)
 
 
+def _norm(ex: _Exporter, fpath: Tuple[str, ...], tprefix: str) -> None:
+    """A flax ``LayerNorm2d`` (scale, bias) -> ``<tprefix>weight/bias``."""
+    ex.put(f"{tprefix}weight", ex.take(fpath + ("scale",)))
+    ex.put(f"{tprefix}bias", ex.take(fpath + ("bias",)))
+
+
+def layer_state_dict_from_jax(layer: nn.Module, variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """flax variables of one of the layer library's layers no model uses
+    (``p2igan_tpu/ops/layers.py`` ``BasicConv``, ``ResBlockDOFFT``,
+    ``LayerNorm2d``, ``STABEDBlock``, ``FFTBenchComplexConv``;
+    ``ops/doconv.py`` ``SimAM``, which has none) -> the port layer's
+    state_dict:
+
+    - ``BasicConv``: ``conv/kernel`` HWIO -> ``main.0.weight`` OIHW (a
+      transposed one's ``kernel`` (k, k, out, in) -> torch's (in, out, k, k)),
+      ``bias``; ``bn/{scale,bias}`` and ``batch_stats`` ``bn/{mean,var}`` ->
+      ``main.1.{weight,bias,running_mean,running_var}``;
+    - ``ResBlockDOFFT``: ``conv1``/``conv2`` -> ``main.{0,1}.main.0``,
+      ``fft1``/``fft2`` (1x1 DO-convs, plain HWIO kernels) ->
+      ``main_fft.{0,1}.main.0``;
+    - ``LayerNorm2d``: ``scale``/``bias`` -> ``weight``/``bias``;
+    - ``STABEDBlock``: ``norm1``, ``norm2`` and the HWIO ``conv_double``,
+      ``conv_single`` under their names;
+    - ``FFTBenchComplexConv``: ``conv1``, ``conv2`` (1x1, HWIO)."""
+    from ..ops.doconv import SimAM
+    from ..ops.layers import (BasicConv, FFTBenchComplexConv, LayerNorm2d,
+                              ResBlockDOFFT, STABEDBlock)
+
+    ex = _Exporter(variables.get("params", {}))
+    if isinstance(layer, BasicConv):
+        stats = _Exporter(variables.get("batch_stats", {}))
+        if layer.transpose:
+            ex.put("main.0.weight", np.transpose(ex.take(("kernel",)), (3, 2, 0, 1)))
+            if layer.main[0].bias is not None:
+                ex.put("main.0.bias", ex.take(("bias",)))
+        else:
+            ex.put("main.0.weight", np.transpose(ex.take(("conv", "kernel")), (3, 2, 0, 1)))
+            if layer.main[0].bias is not None:
+                ex.put("main.0.bias", ex.take(("conv", "bias")))
+        if len(layer.main) > 1:
+            ex.put("main.1.weight", ex.take(("bn", "scale")))
+            ex.put("main.1.bias", ex.take(("bn", "bias")))
+            ex.put("main.1.running_mean", stats.take(("bn", "mean")))
+            ex.put("main.1.running_var", stats.take(("bn", "var")))
+        stats.finish()
+    elif isinstance(layer, ResBlockDOFFT):
+        for i, name in enumerate(("conv1", "conv2")):
+            ex.doconv((name, "conv"), f"main.{i}.main.0", 3)
+        for i, name in enumerate(("fft1", "fft2")):
+            ex.doconv((name, "conv"), f"main_fft.{i}.main.0", 1)
+    elif isinstance(layer, LayerNorm2d):
+        _norm(ex, (), "")
+    elif isinstance(layer, STABEDBlock):
+        for name in ("norm1", "norm2"):
+            _norm(ex, (name,), f"{name}.")
+        for name in ("conv_double", "conv_single"):
+            ex.conv((name,), name, (3, 2, 0, 1))
+    elif isinstance(layer, FFTBenchComplexConv):
+        for name in ("conv1", "conv2"):
+            ex.put(f"{name}.weight", np.transpose(ex.take((name, "kernel")), (3, 2, 0, 1)))
+            if getattr(layer, name).bias is not None:
+                ex.put(f"{name}.bias", ex.take((name, "bias")))
+    elif not isinstance(layer, SimAM):
+        raise TypeError(f"no JAX layout known for {type(layer).__name__}")
+    return ex.finish()
+
+
 def remap_dk_visible_columns(state: Dict[str, torch.Tensor], order: np.ndarray,
                              n_space: int, n_time: int = 0, t_blocks: int = 1
                              ) -> Dict[str, torch.Tensor]:
@@ -240,19 +314,119 @@ def params_from_jax(module: nn.Module, params: Dict[str, Any]
     raise TypeError(f"no JAX layout known for {type(module).__name__}")
 
 
+def _adam_fields(opt_state: Any) -> Dict[str, Any]:
+    """The first element of a JAX optimizer chain (``make_optimizer``: the
+    Adam state, then ``scale_by_learning_rate``'s empty one), from the live
+    optax state (a tuple) or from a checkpoint (a dict keyed "0", "1")."""
+    first = opt_state["0"] if isinstance(opt_state, dict) else opt_state[0]
+    if isinstance(first, dict):
+        return first
+    return {name: getattr(first, name) for name in ("count", "mu", "nu")
+            if hasattr(first, name)}
+
+
+def optimizer_state_dict_from_jax(opt_state: Any, optimizer: torch.optim.Optimizer,
+                                  module: nn.Module) -> Dict[str, Any]:
+    """The JAX package's Adam state -> a state_dict for ``optimizer``, which
+    must have been built over ``module.parameters()`` in order.
+
+    - The port's ``AdamNoMu`` (beta1 = 0) takes ``step`` and ``nu`` of the
+      JAX ``_AdamNoMuState(count, nu)``. The ``mu`` that checkpoints of
+      ``optax.adam`` at beta1 = 0 carry is the last gradient and is dropped,
+      as the JAX trainer's ``_migrate_opt_state`` drops it.
+    - ``torch.optim.Adam`` (beta1 != 0) takes stock ``optax.adam``'s state:
+      ``count`` as ``step``, ``mu`` as ``exp_avg``, ``nu`` as ``exp_avg_sq``."""
+    fields = _adam_fields(opt_state)
+    count = int(np.asarray(fields["count"]))
+    names = [name for name, _ in module.named_parameters()]
+    moments = {key: params_from_jax(module, fields[key])
+               for key in ("mu", "nu") if key in fields}
+    for key, tree in moments.items():
+        if set(tree) != set(names):
+            raise ValueError(f"optimizer {key} {sorted(set(tree) ^ set(names))} "
+                             f"does not match the module's parameters")
+    state = optimizer.state_dict()
+    if isinstance(optimizer, AdamNoMu):
+        state["state"] = {i: {"step": count, "nu": moments["nu"][name]}
+                          for i, name in enumerate(names)}
+    elif isinstance(optimizer, torch.optim.Adam):
+        if "mu" not in moments:
+            raise ValueError("torch.optim.Adam (beta1 != 0) needs the first moment "
+                             "mu, which this JAX optimizer state does not carry")
+        state["state"] = {i: {"step": torch.tensor(float(count)),
+                              "exp_avg": moments["mu"][name],
+                              "exp_avg_sq": moments["nu"][name]}
+                          for i, name in enumerate(names)}
+    else:
+        raise TypeError(f"no JAX optimizer state maps to {type(optimizer).__name__}")
+    return state
+
+
 def optimizer_state_from_jax(opt_state: Any, optimizer: torch.optim.Optimizer,
                              module: nn.Module) -> None:
-    """Load the JAX package's mu-free Adam state (``make_optimizer`` at
-    beta1=0: a chain whose first element is ``_AdamNoMuState(count, nu)``)
-    into the port's ``AdamNoMu``, which must have been built over
-    ``module.parameters()`` in order."""
-    count, nu = int(np.asarray(opt_state[0].count)), opt_state[0].nu
-    moments = params_from_jax(module, nu)
-    names = [name for name, _ in module.named_parameters()]
-    if set(moments) != set(names):
-        raise ValueError(f"optimizer moments {sorted(set(moments) ^ set(names))} "
-                         f"do not match the module's parameters")
-    state = optimizer.state_dict()
-    state["state"] = {i: {"step": count, "nu": moments[name]}
-                      for i, name in enumerate(names)}
-    optimizer.load_state_dict(state)
+    """Load the JAX package's Adam state (:func:`optimizer_state_dict_from_jax`)
+    into ``optimizer``."""
+    optimizer.load_state_dict(optimizer_state_dict_from_jax(opt_state, optimizer, module))
+
+
+def module_state_from_jax(module: nn.Module, entry: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX trainer checkpoint's ``generator`` or ``discriminator`` entry
+    (``{"params", "extra"}``: the extra collections are the P2I critic's
+    ``spectral`` vectors and the simple family's ``batch_stats``) -> the
+    module's state_dict. dk/stdk need no visible-column remap: the JAX
+    package and the port both take the visible pixels in ascending index
+    order (``select_visible``); only reference torch checkpoints need
+    :func:`remap_dk_visible_columns`. Strict: an entry with a collection the
+    family does not have raises."""
+    from .dk import DKGenerator
+    from .p2igan import P2IDiscriminator, P2IGenerator
+    from .simple import SimpleDiscriminator, SimpleGenerator
+
+    variables = {"params": entry["params"], **(entry.get("extra") or {})}
+    for klass, convert, collections in (
+            (P2IGenerator, state_dict_from_jax, ()),
+            (P2IDiscriminator, disc_state_dict_from_jax, ("spectral",)),
+            (DKGenerator, dk_state_dict_from_jax, ()),  # STDKGenerator too
+            (SimpleGenerator, simple_state_dict_from_jax, ("batch_stats",)),
+            (SimpleDiscriminator, simple_disc_state_dict_from_jax, ("batch_stats",))):
+        if isinstance(module, klass):
+            extra = set(variables) - {"params", *collections}
+            if extra:
+                raise ValueError(f"unused JAX collections {sorted(extra)} for "
+                                 f"{type(module).__name__}")
+            return convert(variables)
+    raise TypeError(f"no JAX layout known for {type(module).__name__}")
+
+
+def split_state(module: nn.Module, state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A state_dict of ``module`` as the trainer payload's entry: ``params``
+    (what the optimizer updates) and ``extra`` (the buffers)."""
+    names = {n for n, _ in module.named_parameters()}
+    return {"params": {k: v for k, v in state.items() if k in names},
+            "extra": {k: v for k, v in state.items() if k not in names}}
+
+
+def trainer_payload_from_jax(raw: Dict[str, Any], generator: nn.Module,
+                             opt_g: torch.optim.Optimizer,
+                             discriminator: Optional[nn.Module] = None,
+                             opt_d: Optional[torch.optim.Optimizer] = None
+                             ) -> Dict[str, Any]:
+    """A decoded JAX trainer checkpoint (``p2igan_tpu/training/trainer.py``
+    ``Trainer._save``: ``epoch``, ``global_step``, ``best_val``,
+    ``generator{params,extra}``, ``optimizer_g`` and, from a GAN run,
+    ``discriminator`` and ``optimizer_d``) -> the payload the port's trainer
+    writes, for the port's modules and optimizers built from the same
+    config. The discriminator's entries are converted where ``discriminator``
+    is given and the checkpoint has them."""
+    payload: Dict[str, Any] = {"epoch": int(raw.get("epoch", 0)),
+                               "global_step": int(raw.get("global_step", 0))}
+    if "best_val" in raw:
+        payload["best_val"] = float(raw["best_val"])
+    parts = [("generator", "optimizer_g", generator, opt_g)]
+    if discriminator is not None and "discriminator" in raw:
+        parts.append(("discriminator", "optimizer_d", discriminator, opt_d))
+    for key, opt_key, module, optimizer in parts:
+        payload[key] = split_state(module, module_state_from_jax(module, raw[key]))
+        payload[opt_key] = optimizer_state_dict_from_jax(raw[opt_key], optimizer, module)
+    return payload

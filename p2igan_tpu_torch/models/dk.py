@@ -126,19 +126,33 @@ def select_visible(x_flat: torch.Tensor, m_flat: torch.Tensor, k: int,
     return torch.gather(x_flat, 2, idx)
 
 
+def round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and back to float32: the JAX generators cast
+    their inputs to ``compute_dtype`` and a product with the float32 weights
+    promotes back to float32; torch does not promote mixed matmuls, so the
+    port rounds where JAX casts."""
+    return t if dtype == torch.float32 else t.to(dtype).to(torch.float32)
+
+
 class DKGenerator(nn.Module):
     """masked/masks: (B, T, H, W, C) -> preds (B, T, H, W, C); C must be 1.
 
     ``fused_tail``: ``None`` or ``True`` run the tail through
     :func:`mlp_tail_fused` (kernels on the card, plain version on the CPU);
     ``False`` runs the plain version on either device (the comparison path).
+
+    ``compute_dtype`` (JAX ``DKGenerator.compute_dtype``): the masked frames
+    and the Wendland basis are rounded to it (:func:`round_to`); the weights,
+    the products and the tail's operands stay float32.
     """
 
     def __init__(self, length: int = 16, visible_k: int = 79,
                  num_basis_space: Tuple[int, ...] = (10, 19, 37, 73),
                  fused_tail: Optional[bool] = None, shared_batch_mask: bool = False,
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.length = int(length)
         self.visible_k = int(visible_k)
         self.num_basis_space = tuple(num_basis_space)
@@ -169,7 +183,8 @@ class DKGenerator(nn.Module):
             # the reference's view(b, t, HW) only admits C == 1; dropping
             # extra channels silently would train on a wrong objective
             raise ValueError(f"DK/STDK expect single-channel frames, got C={c}")
-        x_flat = masked_frames[..., 0].reshape(b, t, h * w).to(torch.float32)
+        x_flat = round_to(masked_frames[..., 0].reshape(b, t, h * w).to(torch.float32),
+                          self.compute_dtype)
         m_flat = masks[..., 0].reshape(b, t, h * w).to(torch.float32)
         return select_visible(x_flat, m_flat, self.visible_k, self.shared_batch_mask)
 
@@ -177,8 +192,9 @@ class DKGenerator(nn.Module):
         b, t, h, w, _ = masked_frames.shape
         z = self._inputs(masked_frames, masks)                       # (B, T, k)
         K_s = sum(self.num_basis_space)
-        phi_s = _basis_tensor(build_phi_space, (h, w, self.num_basis_space),
-                              str(masked_frames.device))            # (HW, K_s)
+        phi_s = round_to(_basis_tensor(build_phi_space, (h, w, self.num_basis_space),
+                                       str(masked_frames.device)),
+                         self.compute_dtype)                         # (HW, K_s)
         fc1 = self._mlp.net[0]
         w1_s = fc1.weight[:, :K_s].t()                               # (K_s, hidden)
         w1_z = fc1.weight[:, K_s:].t()                               # (k, hidden)

@@ -37,6 +37,10 @@ from ..ops.layers import (AttentionBlock, BasicConvDO, InputBlock, ResBlockDO,
 from ..ops.spectral_norm import SNConv
 
 
+# the reduced-precision options' dtypes by name
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _data_cfg(config: Dict[str, Any]) -> Dict[str, Any]:
     return config.get("data_loader") or config["data"]["train"]
 
@@ -97,16 +101,25 @@ class P2IGenerator(nn.Module):
     kernels); :meth:`fold_for_inference` derives it from a trained one. The
     IDW defaults are the JAX class's: the generic IDW (``idw_factored``
     False); :meth:`from_config` picks the factored path for sti/stis masks.
-    Weights are initialized from ``generator`` (a ``torch.Generator``)."""
+    Weights are initialized from ``generator`` (a ``torch.Generator``).
+
+    ``compute_dtype`` (JAX ``P2IGenerator.compute_dtype``; no config key, as
+    in the JAX package) runs the convolution pyramid in that dtype: the
+    InputBlock's densified field (the IDW kernels, float32) is cast after the
+    block, every convolution's kernel (and the positional gates) is cast to
+    the activation's dtype, bilinear resizes run in float32 and return the
+    caller's dtype, and ``tanh`` runs on the float32 head. Parameters stay
+    float32; training and the folded serving variant take it alike."""
 
     def __init__(self, H: int = 128, W: int = 128, length: int = 16,
                  num_res: int = 4, base_channels: int = 64, in_channels: int = 1,
                  inference: bool = False, idw_max_points: int = 2048,
                  idw_factored: bool = False, idw_shared_batch_mask: bool = False,
-                 idw_k: int = 4, generator: Optional[torch.Generator] = None,
-                 device=None):
+                 idw_k: int = 4, compute_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.H, self.W, self.length = H, W, length
+        self.compute_dtype = compute_dtype
         self.num_res = num_res
         self.base_channels = base_channels
         self.in_channels = in_channels
@@ -208,7 +221,7 @@ class P2IGenerator(nn.Module):
         x_in = masked_frames.permute(0, 1, 4, 2, 3).reshape(b, t * c, h, w)
         m_in = masks.permute(0, 1, 4, 2, 3).reshape(b, t * c, h, w)
 
-        x = self.input(x_in, m_in, prepared=idw_prepared)
+        x = self.input(x_in, m_in, prepared=idw_prepared).to(self.compute_dtype)
         x_ = self.Convsin(x) + x.repeat_interleave(4, dim=1)
         x_2 = downsample_duplicate_channels(x_, t)
         x_4 = downsample_duplicate_channels(x_2, t)
@@ -218,7 +231,7 @@ class P2IGenerator(nn.Module):
         res2 = self.UP[1](self.Decoder[2](x_4 + res1))
         res3 = self.UP[0](self.Decoder[1](res2))
         z = self.ConvsOut(self.Decoder[0](res3))
-        out = torch.tanh(z)
+        out = torch.tanh(z.to(torch.float32))
         return out.reshape(b, t, c, h, w).permute(0, 1, 3, 4, 2)
 
 
@@ -228,11 +241,20 @@ class P2IDiscriminator(nn.Module):
 
     ``in_channels`` is C*T (the 2-D branch's input width), ``channels`` C.
     ``update_stats=True`` advances every layer's power iteration (training
-    forwards). ``alpha3d`` exists in the reference but is unused."""
+    forwards). ``alpha3d`` exists in the reference but is unused.
+
+    ``branch3d_dtype`` (JAX ``P2IDiscriminator.branch3d_dtype``, config key
+    ``model.disc_branch3d_dtype``) runs the 3-D branch in that dtype: its
+    input is cast, the spectral norm keeps sigma in float32 and casts the
+    kernel (``ops/spectral_norm.py``), and the branch's output is cast back to
+    float32 before the mean over frames, so the fused logits stay float32.
+    Parameters, gradients and optimizer state stay float32."""
 
     def __init__(self, in_channels: int = 16, channels: int = 1,
+                 branch3d_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        self.branch3d_dtype = branch3d_dtype
         lrelu = lambda: nn.LeakyReLU(0.2)  # noqa: E731
         self.d2d = nn.Sequential(
             SNConv(in_channels, 64, (3, 3), 1, 1, device=device), lrelu(),
@@ -252,11 +274,18 @@ class P2IDiscriminator(nn.Module):
 
     @classmethod
     def from_config(cls, config: Dict[str, Any], **kw) -> "P2IDiscriminator":
-        """The 2-D branch takes in_channels * sample_length channels."""
+        """The 2-D branch takes in_channels * sample_length channels;
+        ``model.disc_branch3d_dtype`` ("float32", the default, or "bfloat16")
+        sets the 3-D branch's dtype, any other value raises."""
         model_cfg = config.get("model", {})
         length = _data_cfg(config).get("sample_length", 16) or 16
         c = model_cfg.get("in_channels", 1)
-        return cls(in_channels=c * length, channels=c, **kw)
+        d3d = str(model_cfg.get("disc_branch3d_dtype", "float32"))
+        if d3d not in COMPUTE_DTYPES:
+            raise ValueError(f"model.disc_branch3d_dtype={d3d!r}: expected one of "
+                             f"{sorted(COMPUTE_DTYPES)}")
+        return cls(in_channels=c * length, channels=c,
+                   branch3d_dtype=COMPUTE_DTYPES[d3d], **kw)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -280,8 +309,9 @@ class P2IDiscriminator(nn.Module):
         y = x.permute(0, 1, 4, 2, 3).reshape(b, t * c, h, w)
         out2d = self._branch(self.d2d, y, update_stats)           # (B, 1, h', w')
         # 3-D branch over (B, C, T, H, W), mean over the remaining frames
-        z = self._branch(self.d3d, x.permute(0, 4, 1, 2, 3), update_stats)
-        out3d = z.mean(dim=2)                                     # (B, 1, h'', w'')
+        z = self._branch(self.d3d, x.permute(0, 4, 1, 2, 3).to(self.branch3d_dtype),
+                         update_stats)
+        out3d = z.to(torch.float32).mean(dim=2)                   # (B, 1, h'', w'')
         if out3d.shape[-2:] != out2d.shape[-2:]:
             out3d = bilinear_resize(out3d, out2d.shape[-2:], align_corners=False)
         fused = torch.sigmoid(self.alpha2d) * out2d + out3d

@@ -12,6 +12,7 @@ first layer is decomposed,
 
 three small ``torch.matmul`` products plus a broadcast add, and the tail runs
 through the same fused kernel pair as DK (``ops/dk_mlp_kernel.py``).
+``compute_dtype`` rounds the inputs and both bases as DK does.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.wendland import build_phi_space, build_phi_time, time_basis_count
-from .dk import DKGenerator, _basis_tensor
+from .dk import DKGenerator, _basis_tensor, round_to
 
 
 class STDKGenerator(DKGenerator):
@@ -31,11 +32,13 @@ class STDKGenerator(DKGenerator):
                  num_basis_space: Tuple[int, ...] = (10, 19, 37, 73),
                  num_basis_time: Tuple[int, ...] = (10, 19, 37, 73),
                  fused_tail: Optional[bool] = None, shared_batch_mask: bool = False,
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         self.num_basis_time = tuple(num_basis_time)
         super().__init__(length=length, visible_k=visible_k,
                          num_basis_space=num_basis_space, fused_tail=fused_tail,
-                         shared_batch_mask=shared_batch_mask, generator=generator,
+                         shared_batch_mask=shared_batch_mask,
+                         compute_dtype=compute_dtype, generator=generator,
                          device=device)
 
     def feature_dim(self) -> int:
@@ -49,8 +52,10 @@ class STDKGenerator(DKGenerator):
         K_s = sum(self.num_basis_space)
         K_t = time_basis_count(self.length, self.num_basis_time)
         dev = str(masked_frames.device)
-        phi_s = _basis_tensor(build_phi_space, (h, w, self.num_basis_space), dev)
-        phi_t = _basis_tensor(build_phi_time, (t, self.num_basis_time), dev)
+        phi_s = round_to(_basis_tensor(build_phi_space, (h, w, self.num_basis_space), dev),
+                         self.compute_dtype)
+        phi_t = round_to(_basis_tensor(build_phi_time, (t, self.num_basis_time), dev),
+                         self.compute_dtype)
         fc1 = self._mlp.net[0]
         w_s = fc1.weight[:, :K_s].t()
         w_t = fc1.weight[:, K_s:K_s + K_t].t()

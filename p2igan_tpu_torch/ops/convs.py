@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -113,9 +114,86 @@ class _BilinearResize(torch.autograd.Function):
         return torch.matmul(torch.matmul(a_h.t(), g), a_w), None, None
 
 
+@functools.lru_cache(maxsize=32)
+def _two_tap_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
+    """(n_out, n_in) float32 bilinear matrix along one axis, built as the JAX
+    package builds its resize matrices (``p2igan_tpu/ops/convs.py``
+    ``_align_corners_matrix`` / ``_align_false_matrix``): source positions in
+    float64, weights stored in float32. Each row has at most two nonzeros."""
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    if align_corners and n_in == 1:
+        m[:, 0] = 1.0
+        return m
+    if align_corners:
+        src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    else:
+        src = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0, n_in - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    w = (src - lo).astype(np.float32)
+    m[np.arange(n_out), lo] += 1.0 - w
+    m[np.arange(n_out), hi] += w
+    return m
+
+
+@functools.lru_cache(maxsize=32)
+def _two_taps(n_in: int, n_out: int, align_corners: bool, device: str):
+    """Per output: its first and last nonzero column of the matrix above (the
+    same column where the row has one) and their float32 weights (the last
+    one's 0 where the row has one)."""
+    m = _two_tap_matrix(n_in, n_out, align_corners)
+    rows = np.arange(n_out)
+    first = (m != 0).argmax(axis=1)
+    last = n_in - 1 - (m[:, ::-1] != 0).argmax(axis=1)
+    w_last = np.where(last != first, m[rows, last], 0.0).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (first, last, m[rows, first], w_last))
+
+
+def _taps_along(x: torch.Tensor, dim: int, n_out: int, align_corners: bool) -> torch.Tensor:
+    """The resize along ``dim`` of float32 ``x`` with the arithmetic of the
+    JAX package's matrix product on its CPU, which sums a row's nonzero terms
+    in column order by fused multiply-add: round(w0 x0), then round(w1 x1 +
+    that). The fused step runs in float64, where w1 x1 is exact."""
+    first, last, w0, w1 = _two_taps(x.shape[dim], n_out, align_corners, str(x.device))
+    shape = [1] * x.dim()
+    shape[dim] = n_out
+    t0 = x.index_select(dim, first) * w0.view(shape)
+    t1 = x.index_select(dim, last).to(torch.float64) * w1.view(shape).to(torch.float64)
+    return (t0.to(torch.float64) + t1).to(torch.float32)
+
+
+class _BilinearResizeTaps(torch.autograd.Function):
+    """Forward: :func:`_taps_along` over H, then W. Backward: the transposed
+    resize as two matrix products with the same matrices, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, size, align_corners):
+        ctx.args = (x.shape[-2:], tuple(size), align_corners)
+        y = _taps_along(x, x.dim() - 2, size[0], align_corners)
+        return _taps_along(y, x.dim() - 1, size[1], align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        (H, W), (h, w), align_corners = ctx.args
+        a_h = torch.from_numpy(_two_tap_matrix(H, h, align_corners)).to(g.device)
+        a_w = torch.from_numpy(_two_tap_matrix(W, w, align_corners)).to(g.device)
+        return torch.matmul(torch.matmul(a_h.t(), g), a_w), None, None
+
+
 def bilinear_resize(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
     """``F.interpolate(x, size, mode='bilinear', align_corners)`` on (B, C, H,
-    W); its gradient sums in a fixed order."""
+    W); its gradient sums in a fixed order.
+
+    A bfloat16 input (the P2I generator's bf16 ``compute_dtype``) is resized
+    in float32 and the result rounded to bfloat16, as the JAX package
+    interpolates, with the JAX package's float32 arithmetic
+    (:class:`_BilinearResizeTaps`): the resize of bf16 values lands on
+    bf16 rounding ties often enough that the last float32 bit decides the
+    rounded result."""
+    if x.dtype == torch.bfloat16:
+        return _BilinearResizeTaps.apply(x.to(torch.float32), tuple(size),
+                                         align_corners).to(x.dtype)
     if x.requires_grad and torch.is_grad_enabled():
         return _BilinearResize.apply(x, tuple(size), align_corners)
     return F.interpolate(x, size=size, mode="bilinear", align_corners=align_corners)

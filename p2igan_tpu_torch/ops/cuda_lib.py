@@ -49,6 +49,7 @@ _SIGNATURES = {
                                 _I, _F, _F, _I, _P],
     "p2i_combine_table_multi_bwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "p2i_maxpool2_duplicate": [_P, _P, _I, _I, _I, _I, _P],
+    "p2i_maxpool2_duplicate_bf16": [_P, _P, _I, _I, _I, _I, _P],
     "p2i_decode_normalize_mask": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "p2i_dk_mlp_tail": [_P] * 9 + [_I, _I, _I, _P],
     "p2i_dk_mlp_tail_bwd": [_P] * 13 + [_I, _I, _I, _I, _P],

@@ -10,7 +10,8 @@ effective kernel is
 
 with ``W' = reshape(W, (out/g, in, D_mul))``. The folded (serving) variant
 holds the plain ``W (out, in/g, M, N)`` kernel, as the reference's
-``DOConv2d_eval`` does.
+``DOConv2d_eval`` does. :class:`SimAM` is the reference module's
+parameter-free attention (the JAX package's ``SimAM``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,22 @@ def fold_doconv(W: torch.Tensor, D: torch.Tensor,
     Wr = W.reshape(out_ch // groups, in_ch, D_mul)
     dow = torch.einsum("ims,ois->oim", D + D_diag, Wr)
     return dow.reshape(out_ch, in_per_g, M, N)
+
+
+class SimAM(nn.Module):
+    """Parameter-free SimAM attention (reference deconv_pytorch.py:211-223; JAX
+    ``SimAM``): x * sigmoid(energy), the energy from each channel's spatial
+    variance. x: (B, C, H, W)."""
+
+    def __init__(self, e_lambda: float = 1e-4):
+        super().__init__()
+        self.e_lambda = e_lambda
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[-2] * x.shape[-1] - 1
+        sq = (x - x.mean(dim=(-2, -1), keepdim=True)) ** 2
+        y = sq / (4 * (sq.sum(dim=(-2, -1), keepdim=True) / n + self.e_lambda)) + 0.5
+        return x * torch.sigmoid(y)
 
 
 class DOConv2d(nn.Module):
@@ -111,8 +128,9 @@ class DOConv2d(nn.Module):
                               1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.kernel(), stride=self.stride, padding=self.padding,
-                      groups=self.groups)
+        """The kernel (composed in float32) is cast to the input's dtype."""
+        return conv2d(x, self.kernel().to(x.dtype), stride=self.stride,
+                      padding=self.padding, groups=self.groups)
 
     @torch.no_grad()
     def folded(self) -> "DOConv2d":

@@ -12,6 +12,11 @@ iteration only when asked (``update_stats``), as the JAX package does:
 with ``W_mat = weight_orig.reshape(out, -1)`` and eps=1e-12. The iteration
 runs detached; sigma keeps its gradient through ``W``. With ``update_stats``
 false (eval) the stored ``u`` and ``v`` are used as they are.
+
+On an input of a narrower dtype (the P2I critic's bfloat16 3-D branch) the
+iteration and sigma stay float32, the normalised kernel is cast to the
+input's dtype and the bias is added after the convolution in the output's
+dtype, as the JAX ``SNConv`` does; parameters and buffers stay float32.
 """
 
 from __future__ import annotations
@@ -85,4 +90,9 @@ class SNConv(nn.Module):
         sigma = u @ (w_mat @ v)
         weight = self.weight_orig / sigma
         conv = F.conv2d if self.ndim == 2 else F.conv3d
-        return conv(x, weight, self.bias, stride=self.stride, padding=self.padding)
+        if x.dtype == weight.dtype:
+            return conv(x, weight, self.bias, stride=self.stride, padding=self.padding)
+        out = conv(x, weight.to(x.dtype), None, stride=self.stride, padding=self.padding)
+        if self.bias is None:
+            return out
+        return out + self.bias.to(out.dtype).reshape((-1,) + (1,) * self.ndim)

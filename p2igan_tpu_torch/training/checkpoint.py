@@ -6,8 +6,13 @@
 ``optimizer_g``, ``discriminator{params,extra}``, ``optimizer_d``) in torch's
 format (``torch.save``; loaded with ``weights_only=True``). ``params`` holds
 what the optimizer updates, ``extra`` the module's buffers (BatchNorm running
-statistics of the simple family, spectral-norm vectors). JAX msgpack
-checkpoints do not load: they raise and name the conversion.
+statistics of the simple family, spectral-norm vectors).
+
+JAX checkpoints load too: a file that is not a zip archive is read as the
+flax msgpack the JAX trainer writes, decoded without flax or msgpack
+(``utils/flax_msgpack.py``); its tree is the JAX payload, in the JAX layouts,
+which ``models/convert.py`` takes to the port's (``trainer_payload_from_jax``
+for resume, ``module_state_from_jax`` for serving).
 ``resolve_checkpoint`` follows the JAX package (explicit path, else
 ``latest.ckpt``, else the newest ``*.ckpt``/``*.msgpack``/``*.pt`` under the
 directory; reference scripts/infer.py:61-80).
@@ -23,11 +28,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-_MSGPACK_HINT = ("the PyTorch port loads torch-format checkpoints only. A JAX "
-                 "msgpack checkpoint can be converted on a host with flax: "
-                 "restore it with p2igan_tpu.training.checkpoint.load_checkpoint_raw, "
-                 "then p2igan_tpu_torch.models.convert.state_dict_from_jax, then "
-                 "torch.save")
+from ..utils import flax_msgpack
+
+_FORMAT_HINT = ("neither a torch checkpoint (a zip archive) nor a JAX trainer "
+                "checkpoint (flax msgpack)")
 
 
 def save_checkpoint(path: str | Path, payload: Dict[str, Any]) -> None:
@@ -39,11 +43,24 @@ def save_checkpoint(path: str | Path, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
-def load_checkpoint_raw(path: str | Path) -> Dict[str, Any]:
-    """The payload of a torch-format checkpoint, on the CPU."""
+def is_jax_checkpoint(path: str | Path) -> bool:
+    """Whether ``path`` holds a JAX trainer checkpoint (flax msgpack) rather
+    than a torch one; anything else raises."""
     path = Path(path)
-    if not zipfile.is_zipfile(path):
-        raise NotImplementedError(f"{path}: {_MSGPACK_HINT}")
+    if zipfile.is_zipfile(path):
+        return False
+    with open(path, "rb") as f:
+        if flax_msgpack.is_flax_checkpoint(f.read(1)):
+            return True
+    raise ValueError(f"{path}: {_FORMAT_HINT}")
+
+
+def load_checkpoint_raw(path: str | Path) -> Dict[str, Any]:
+    """The payload of a checkpoint, on the CPU: a torch checkpoint as saved,
+    a JAX one as its decoded tree (numpy leaves, JAX layouts)."""
+    path = Path(path)
+    if is_jax_checkpoint(path):
+        return flax_msgpack.msgpack_restore(path.read_bytes())
     return torch.load(str(path), map_location="cpu", weights_only=True)
 
 
@@ -70,13 +87,30 @@ def resolve_checkpoint(save_dir: str | Path,
     raise FileNotFoundError(f"Checkpoint not found under {base}")
 
 
-def load_generator_state(path: str | Path) -> Dict[str, torch.Tensor]:
-    """Generator state_dict from a torch checkpoint: a bare state_dict, the
+def load_generator_state(path: str | Path,
+                         module: Optional[torch.nn.Module] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Generator state_dict from a checkpoint: a bare state_dict, the
     reference trainer's dict with a ``generator`` entry, or the port's
-    trainer payload (``generator.params``)."""
+    trainer payload (``generator.params``); or a JAX checkpoint (the JAX
+    trainer's payload or bare generator variables, as the JAX package's
+    ``variables_from_checkpoint`` reads them), converted for ``module``, the
+    generator it is for (required then: the layout depends on the family)."""
     path = Path(path)
-    if path.suffix != ".pt" and not zipfile.is_zipfile(path):
-        raise NotImplementedError(f"{path}: {_MSGPACK_HINT}")
+    if is_jax_checkpoint(path):
+        if module is None:
+            raise ValueError(f"{path} is a JAX checkpoint: its conversion needs the "
+                             f"generator module it is for")
+        from ..models.convert import module_state_from_jax
+
+        raw = load_checkpoint_raw(path)
+        gen = raw.get("generator", raw)
+        if "params" not in gen:  # bare parameters
+            gen = {"params": gen}
+        # a trainer payload's entry keeps its collections under "extra", bare
+        # variables beside "params"
+        extra = gen.get("extra", {k: v for k, v in gen.items() if k != "params"})
+        return module_state_from_jax(module, {"params": gen["params"], "extra": extra})
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "generator" in ckpt:
         ckpt = ckpt["generator"]

@@ -63,7 +63,8 @@ from ..ops import cuda_lib
 from ..ops.decode_mask import decode_normalize_mask
 from ..parallel.mesh import create_mesh
 from ..utils.tracking import NullTracker, get_tracker
-from .checkpoint import load_checkpoint_raw, save_checkpoint
+from ..models.convert import split_state, trainer_payload_from_jax
+from .checkpoint import is_jax_checkpoint, load_checkpoint_raw, save_checkpoint
 from .steps import build_eval_step, build_predict_fn, build_train_step, make_optimizer
 
 
@@ -529,10 +530,7 @@ class Trainer:
         """``params`` (what the optimizer updates) and ``extra`` (buffers: the
         BatchNorm running statistics, the spectral-norm vectors), the JAX
         payload's two entries."""
-        names = {n for n, _ in module.named_parameters()}
-        state = module.state_dict()
-        return {"params": {k: v for k, v in state.items() if k in names},
-                "extra": {k: v for k, v in state.items() if k not in names}}
+        return split_state(module, module.state_dict())
 
     def _save(self, path: Path, epoch: int) -> None:
         """Rank 0 writes the checkpoint (every rank holds the same state)."""
@@ -552,12 +550,16 @@ class Trainer:
 
     def load(self, path: str | Path) -> None:
         """Resume the training state (weights, optimizers, counters) from a
-        checkpoint this trainer wrote; every rank reads it, then takes rank
-        0's state."""
+        checkpoint this trainer wrote, or one the JAX trainer wrote under the
+        same config (converted by ``trainer_payload_from_jax``, then loaded
+        the same way); every rank reads it, then takes rank 0's state."""
         raw = load_checkpoint_raw(path)
         if not isinstance(raw, dict) or "optimizer_g" not in raw:
             raise ValueError(f"{path} holds no training state (optimizer_g): "
                              f"resume needs a checkpoint written by the trainer")
+        if is_jax_checkpoint(path):
+            raw = trainer_payload_from_jax(raw, self.generator, self.opt_g,
+                                           self.discriminator, self.opt_d)
         gen = raw["generator"]
         self.generator.load_state_dict({**gen["params"], **gen["extra"]})
         self.opt_g.load_state_dict(raw["optimizer_g"])

@@ -25,16 +25,15 @@ if _repo not in _sys.path:
 
 import argparse
 import logging
-import random
 from pathlib import Path
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from p2igan_tpu_torch.config import load_config
 from p2igan_tpu_torch.inference.driver import run_inference
 from p2igan_tpu_torch.parallel import shutdown
+from p2igan_tpu_torch.utils.rng import seed_everything
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=Path,
                         default=Path("p2igan_tpu_torch/config/p2igan_baseline.json"))
     parser.add_argument("--checkpoint", type=Path, default=None,
-                        help="Path to a torch .pt generator checkpoint.")
+                        help="Path to a generator checkpoint: a torch .pt (reference "
+                             "or port layout) or a JAX trainer .ckpt.")
     parser.add_argument("--model-dir", type=Path, default=None)
     parser.add_argument("--data-root", type=Path, default=None)
     parser.add_argument("--output", type=Path, default=None)
@@ -83,10 +83,7 @@ def main(args: Optional[argparse.Namespace] = None) -> Path:
                         format="%(asctime)s %(levelname)s %(message)s")
     logging.info("Loading config from %s", parsed.config)
     cfg = load_config(parsed.config)
-    seed = cfg.get("seed", 42)
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
+    seed_everything(cfg.get("seed", 42))
     try:
         return run_inference(
             cfg,

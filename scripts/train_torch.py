@@ -25,15 +25,14 @@ if _repo not in _sys.path:
 import argparse
 import logging
 import os
-import random
 from pathlib import Path
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from p2igan_tpu_torch.config import load_config
 from p2igan_tpu_torch.parallel import shutdown
+from p2igan_tpu_torch.utils.rng import seed_everything
 from p2igan_tpu_torch.training.trainer import Trainer
 from p2igan_tpu_torch.utils.tracking import get_tracker, setup_logging
 
@@ -49,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tracking-uri", type=str, default=None)
     parser.add_argument("--log-level", type=str, default="INFO")
     parser.add_argument("--resume", type=Path, default=None,
-                        help="Checkpoint to resume from (params+optimizer+step).")
+                        help="Checkpoint to resume from (params+optimizer+step): "
+                             "the port trainer's or the JAX trainer's.")
     parser.add_argument("--run-validation", dest="run_validation", action="store_true")
     parser.add_argument("--skip-validation", dest="run_validation", action="store_false")
     parser.set_defaults(run_validation=None)
@@ -85,10 +85,7 @@ def main(args: Optional[argparse.Namespace] = None) -> Trainer:
         train_cfg["use_test"] = bool(parsed.run_test)
     if parsed.resume is not None and not parsed.resume.exists():
         raise SystemExit(f"--resume checkpoint not found: {parsed.resume}")
-    seed = config.get("seed", 42)
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
+    seed_everything(config.get("seed", 42))
     try:
         trainer = Trainer(config, device=parsed.device)
         if parsed.resume is not None:

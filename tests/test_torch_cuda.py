@@ -1331,3 +1331,104 @@ def test_evaluate_rec_loss_with_eval_metrics_on_the_card(dev, tmp_path, monkeypa
     assert got.keys() == want.keys()
     for key, val in want.items():
         np.testing.assert_allclose(got[key], val, rtol=1e-5, atol=1e-12, err_msg=key)
+
+
+# -- the bf16 options: #3 on bfloat16, the bf16 critic ---------------------------
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("shape", [(8, 64, 128, 128), (12, 256, 32, 32), (3, 5, 6, 10),
+                                   (2, 3, 8, 6), (1, 1, 2, 2), (1, 70000, 16, 128)])
+def test_pool_dup_bf16_kernel_bitwise(dev, shape, offset):
+    """The bf16 instantiation of #3, forward and backward bitwise its plain
+    version (``max_pool2d`` -> ``repeat_interleave`` on bf16), NaN and +-0
+    included: the 8-byte form (W % 4 == 0, 8-byte aligned), the 4-byte form
+    (rows of 6 or 10 or 2, or an input offset by two elements), more planes
+    than grid.z holds."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, device=dev).to(torch.bfloat16)[offset:].view(shape)
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[1::11] = -0.0
+    x.view(-1)[3::101] = float("nan")
+    before = (maxpool2_duplicate.launches, maxpool2_duplicate.bf16_launches)
+    got, want = maxpool2_duplicate(x), maxpool2_duplicate_reference(x)
+    assert (maxpool2_duplicate.launches, maxpool2_duplicate.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    xa, xr = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    y = maxpool2_duplicate(xa)
+    assert type(y.grad_fn).__name__ == "_MaxPool2DuplicateBackward"
+    gy = torch.randn(y.shape, device=dev).to(torch.bfloat16)
+    y.backward(gy)
+    maxpool2_duplicate_reference(xr).backward(gy)
+    assert torch.equal(xa.grad.view(torch.int16), xr.grad.view(torch.int16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        maxpool2_duplicate(x.to(torch.float16))
+
+
+def test_gan_step_with_the_bf16_critic_card_equals_cpu(dev):
+    """One hinge-GAN step (32x32, base 16, T=4, batch 2, a shared 9-gauge
+    mask) with the critic's 3-D branch in bf16, from the same state on the
+    card (kernels, cuDNN in bf16) and on the CPU (plain versions, oneDNN in
+    bf16), held as ``tests/test_torch_bf16.py`` holds it against the JAX
+    package: losses rtol 2e-2; the parameters within 2 lr everywhere (Adam's
+    first step) and within 1e-2 lr where the two gradients agree in sign and
+    clear 1e-3 x max and 100 x eps; the generator's and the 2-D branch's
+    gradients within 2e-2 x max of each tensor; the 3-D branch's gradient
+    signs agree on 99% of its elements above 100 x eps."""
+    from p2igan_tpu_torch.models import P2IDiscriminator, P2IGenerator
+    from p2igan_tpu_torch.training import steps as tsteps
+
+    T, hw, lr, eps = 4, 32, 1e-4, 1e-8
+    rng = np.random.default_rng(11)
+    flat = np.zeros(hw * hw, np.float32)
+    flat[rng.choice(hw * hw, 9, replace=False)] = 1.0
+    masks = np.broadcast_to(flat.reshape(1, 1, hw, hw, 1), (2, T, hw, hw, 1)).copy()
+    frames = rng.random((2, T, hw, hw, 1), dtype=np.float32)
+    kw = dict(H=hw, W=hw, length=T, num_res=1, base_channels=16, idw_max_points=128,
+              idw_factored=True, idw_shared_batch_mask=True)
+    gen0 = P2IGenerator(**kw, generator=torch.Generator().manual_seed(0))
+    disc0 = P2IDiscriminator(in_channels=T, branch3d_dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():  # a few power iterations: sigma well conditioned
+        for _ in range(3):
+            disc0(torch.from_numpy(frames), update_stats=True)
+    runs = {}
+    for d in ("cpu", dev):
+        gen = P2IGenerator(**kw, device=d)
+        gen.load_state_dict(gen0.state_dict())
+        disc = P2IDiscriminator(in_channels=T, branch3d_dtype=torch.bfloat16, device=d)
+        disc.load_state_dict(disc0.state_dict())
+        cfg = {"lr": lr, "beta1": 0.0, "beta2": 0.99}
+        step = tsteps.build_train_step(
+            gen, disc, tsteps.make_optimizer(cfg, gen.parameters()),
+            tsteps.make_optimizer(cfg, disc.parameters()), use_gan=True,
+            gan_loss_type="hinge", adversarial_weight=0.01, k1_alpha=0.05)
+        m = step(*(torch.from_numpy(a).to(d) for a in (frames, frames * masks, masks)))
+        runs[str(d)] = ({k: float(v) for k, v in m.items()}, gen, disc)
+    (mc, gc, dc), (mg, gg, dg) = runs["cpu"], runs[str(dev)]
+    for key in ("loss", "rec_loss", "adv_loss", "dis_loss"):
+        np.testing.assert_allclose(mg[key], mc[key], rtol=2e-2, err_msg=key)
+    signs = []
+    for mod_c, mod_g in ((gc, gg), (dc, dg)):
+        card = dict(mod_g.named_parameters())
+        for name, p in mod_c.named_parameters():
+            q = card[name]
+            assert q.dtype == torch.float32
+            np.testing.assert_allclose(q.detach().cpu().numpy(), p.detach().numpy(),
+                                       rtol=0, atol=2.0001 * lr, err_msg=name)
+            if p.grad is None:
+                continue
+            g, w = q.grad.cpu().numpy(), p.grad.numpy()
+            same = ((np.sign(g) == np.sign(w))
+                    & (np.minimum(np.abs(g), np.abs(w)) > max(1e-3 * np.abs(w).max(),
+                                                              100 * eps)))
+            np.testing.assert_allclose(q.detach().cpu().numpy()[same],
+                                       p.detach().numpy()[same], rtol=0, atol=1e-2 * lr,
+                                       err_msg=name)
+            if name.startswith("d3d."):
+                signs.append((np.sign(g) == np.sign(w))[np.abs(w) > 100 * eps])
+            else:
+                assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
+    assert np.concatenate(signs).mean() >= 0.99

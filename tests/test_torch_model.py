@@ -6,6 +6,7 @@ The same reference-layout random state loads into JAX through
 go through both. Generator tolerance: atol 1e-4 (ROADMAP).
 """
 
+import flax.serialization
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -170,14 +171,31 @@ def test_unported_paths_raise(tmp_path):
     for cfg in ({"model": {"name": "simple", "base_channels": 4}},
                 {"model": {"base_channels": 4}}):
         assert type(build_generator_for_inference(cfg)).__name__ == "SimpleGenerator"
-    with pytest.raises(NotImplementedError, match="disc_branch3d_dtype"):
-        build_discriminator({"model": {"name": "p2igan",
-                                       "disc_branch3d_dtype": "bfloat16"}})
+    # the bf16 critic branch and JAX msgpack checkpoints are ported: both
+    # load; an unknown dtype and a file of neither format still raise
+    cfg = {"model": {"name": "p2igan", "disc_branch3d_dtype": "bfloat16"},
+           "data": {"train": {"sample_length": T}}}
+    assert build_discriminator(cfg).branch3d_dtype == torch.bfloat16
+    cfg["model"]["disc_branch3d_dtype"] = "float16"
+    with pytest.raises(ValueError, match="disc_branch3d_dtype='float16'"):
+        build_discriminator(cfg)
     ckpt = tmp_path / "latest.ckpt"
-    ckpt.write_bytes(b"\x80")
+    gen = P2IGenerator(**GEN_KW)
+    variables = TI.import_p2igan_generator(reference_state(), num_res=NUM_RES)
+    ckpt.write_bytes(flax.serialization.to_bytes(
+        {"epoch": 1, "global_step": 2, "generator": {"params": variables["params"],
+                                                     "extra": {}}}))
     assert resolve_checkpoint(tmp_path) == ckpt
-    with pytest.raises(NotImplementedError, match="state_dict_from_jax"):
+    state = load_generator_state(ckpt, gen)
+    want = state_dict_from_jax(variables)
+    assert list(state) == list(want)
+    assert all(torch.equal(state[k], want[k]) for k in want)
+    with pytest.raises(ValueError, match="needs the generator module"):
         load_generator_state(ckpt)
+    bad = tmp_path / "bad.ckpt"
+    bad.write_bytes(b"\x01")
+    with pytest.raises(ValueError, match="neither a torch checkpoint"):
+        load_generator_state(bad, gen)
     pt = tmp_path / "g.pt"
     torch.save({"generator": {"x": torch.ones(2)}}, pt)
     assert torch.equal(load_generator_state(resolve_checkpoint(tmp_path, pt))["x"],

@@ -1,5 +1,6 @@
-"""The PyTorch port must run where jax, flax, optax, matplotlib, h5py and the
-JAX package ``p2igan_tpu`` are absent: it imports none of them and loads no
+"""The PyTorch port must run where jax, flax, optax, msgpack, matplotlib, h5py
+and the JAX package ``p2igan_tpu`` are absent (it reads JAX checkpoints with
+its own decoder): it imports none of them and loads no
 file of ``p2igan_tpu/`` by path; its config JSONs are its own copies."""
 
 import ast
@@ -11,13 +12,15 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "p2igan_tpu", "matplotlib", "h5py")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "p2igan_tpu", "matplotlib",
+           "h5py")
 PORT_FILES = sorted([*(REPO / "p2igan_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
                      *(REPO / "scripts").glob("*_torch.py")])
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
-blocked = ("jax", "jaxlib", "flax", "optax", "p2igan_tpu", "matplotlib", "h5py")
+blocked = ("jax", "jaxlib", "flax", "optax", "msgpack", "p2igan_tpu", "matplotlib",
+           "h5py")
 for name in list(sys.modules):
     if name.split(".")[0] in blocked:
         del sys.modules[name]
@@ -69,6 +72,12 @@ def test_the_evaluation_path_is_among_the_scanned_files(name):
 
 @pytest.mark.parametrize("name", ["parallel/__init__.py", "parallel/mesh.py"])
 def test_the_parallel_package_is_among_the_scanned_files(name):
+    assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
+
+
+@pytest.mark.parametrize("name", ["utils/flax_msgpack.py", "utils/rng.py",
+                                  "training/checkpoint.py", "models/convert.py"])
+def test_the_jax_checkpoint_path_is_among_the_scanned_files(name):
     assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
 
 
