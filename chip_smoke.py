@@ -222,6 +222,18 @@
      loading it, and 2 rec-loss steps resumed through
      ``scripts/train_torch.py --resume`` whose restored global_step, epoch and
      nu are the checkpoint's.
+9c. The offline suite (``p2igan_tpu_torch/experiments``, ``offline_suite``)
+   over the stores the serving phases wrote (p2igan stis, dk, stdk, simple:
+   2 events x 64 frames) against ``test_events.zarr``; input gauges: the
+   served 79-gauge mask, gauge-mode scoring mask: a second one. In gauge and
+   radar mode: exp1 through ``python -m p2igan_tpu_torch.experiments.main``'s
+   ``main`` on the card, exp3's metrics and the inspection statistics on the
+   card, each against the same functions on the CPU (contingency counts and
+   PSS exactly, MAE, RMSE and NSE within rtol 1e-12, SSIM and DTSSIM within
+   rtol 1e-5 + atol 1e-7, the statistics' n/min/max exactly and mean/std
+   within rtol 1e-5); one line a method of the card's scores; ``run_exp3``
+   raises an ImportError naming matplotlib where it is not installed (else
+   it draws its four figures); the phase's seconds.
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time, null only for #9, whose chain fits in no card's memory at
@@ -254,6 +266,12 @@ from p2igan_tpu_torch.data import fake, zarrlite
 from p2igan_tpu_torch.data.datamodule import P2IDataModule
 from p2igan_tpu_torch.data.masks import create_mask_np
 from p2igan_tpu_torch.data.stores import store_compressor
+from p2igan_tpu_torch.experiments import main as experiments_main
+from p2igan_tpu_torch.experiments import test as inspection
+from p2igan_tpu_torch.experiments.compare import suite_mismatches
+from p2igan_tpu_torch.experiments.config import build_config
+from p2igan_tpu_torch.experiments.exp1 import run_exp1
+from p2igan_tpu_torch.experiments.exp3 import exp3_metrics, run_exp3
 from p2igan_tpu_torch.inference.driver import (SlidingWindowReconstructor,
                                                load_generator, set_precision_policy)
 from p2igan_tpu_torch.losses import reconstruction_loss
@@ -3629,6 +3647,72 @@ def jax_checkpoint(tmp: Path, card: str, dev) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+OFFLINE_METHODS = {"P2IGAN": "served_p2igan.zarr", "DK": "served_dk.zarr",
+                   "STDK": "served_stdk.zarr", "SIMPLE": "served_simple.zarr"}
+EXP3_FIGURES = ("scatter_panels.pdf", "residual_panels.pdf", "nse_boxplot.pdf",
+                "logfreq.pdf")
+
+
+def offline_suite(tmp: Path, card: str) -> None:
+    """The offline suite on the card against the CPU (docstring item 9c)."""
+    t0 = time.perf_counter()
+    test_mask = fake.write_gauge_mask(tmp / "masks" / "gauge_mask_128_test.txt", H=H, W=W,
+                                      n_gauges=79, seed=SEED + 1)
+    for mode in ("gauge", "radar"):
+        econf = {"experiment_name": f"suite_{mode}", "save_dir": str(tmp / "results"),
+                 "mode": mode, "run_exp1": True, "run_exp2_gif": False,
+                 "run_exp2_pdf": False, "run_exp3": False, "crop_size": H,
+                 "data": {mode: {
+                     "observation_path": str(tmp / "test_events.zarr"),
+                     "truth_path": str(tmp / "test_events.zarr"),
+                     "methods": {k: str(tmp / v) for k, v in OFFLINE_METHODS.items()},
+                     "mask_train_path": str(tmp / "masks" / "gauge_mask_128.txt"),
+                     "mask_test_path": str(test_mask)}}}
+        cfg_path = tmp / f"suite_{mode}.json"
+        cfg_path.write_text(json.dumps(econf))
+        experiments_main.main(config_path=str(cfg_path), device="cuda")
+        card_exp1 = json.loads((tmp / "results" / f"suite_{mode}" / "exp1" /
+                                "metrics.json").read_text())
+        cfg = build_config(str(cfg_path))
+        ctx = experiments_main.load_context(cfg, "cpu")
+        args = (ctx.preds, ctx.truth, ctx.eval_mask, mode, H)
+        got = {"exp1": card_exp1, "exp3": exp3_metrics(*args, device="cuda")}
+        # metrics.json's key order (sorted) and its float round trip
+        want = {"exp1": json.loads(json.dumps(run_exp1(*args, device="cpu"), sort_keys=True)),
+                "exp3": exp3_metrics(*args, device="cpu")}
+        if mode == "radar":  # the same stores in either mode
+            got["inspection"], want["inspection"] = (
+                {k: inspection.statistics(v) for k, v in inspection.inspect(cfg, d).items()}
+                for d in ("cuda", "cpu"))
+        bad = suite_mismatches(got, want, mode)
+        if bad:
+            fail(f"offline suite, card against CPU: {'; '.join(bad[:12])}")
+        for name, row in card_exp1.items():
+            print(f"offline suite {mode} {name} (card; fake stores, seeded weights): "
+                  + ", ".join(f"{k} {row[k]:.6f}" for k in ("MAE", "RMSE", "PSS", "SSIM",
+                                                             "DTSSIM_L1", "NSE"))
+                  + ", " + ", ".join(f"CSI/HSS {t} {row[f'CAT_{t}']['CSI']:.6f}/"
+                                     f"{row[f'CAT_{t}']['HSS']:.6f}" for t in ("0.5", "4"))
+                  + f"; exp3 NSE {got['exp3'][f'NSE_{name}']:.6f}")
+        print(f"offline suite {mode}: the card's " + ", ".join(got)
+              + " within the stated tolerances of the CPU's")
+    out = tmp / "results" / "exp3_figures"
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            run_exp3(*args, str(out), device="cuda")
+        except ImportError as exc:
+            if "matplotlib" not in str(exc):
+                fail(f"run_exp3 without matplotlib raised {exc!r}")
+            print(f"run_exp3 without matplotlib raises {type(exc).__name__}: {exc}")
+        else:
+            fail("run_exp3 drew its figures without matplotlib")
+    else:
+        run_exp3(*args, str(out), device="cuda")
+        if not all((out / f).exists() for f in EXP3_FIGURES):
+            fail(f"run_exp3 wrote {sorted(p.name for p in out.iterdir())}")
+    print(f"offline_suite phase: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3731,6 +3815,7 @@ def main() -> int:
             label = "simple GAN training" if use_gan else "simple rec-loss training"
             paths[label], sps = train_simple(tmp, card, dev, use_gan)
             print(f"{label}: {sps:.4f} steps/s on {card}")
+        offline_suite(tmp, card)
 
     print(f"p2igan in this run on {card}: serving events/s "
           + ", ".join(f"{kind} {RATES[f'p2igan{sfx} serving']:.4f}" for kind, sfx in

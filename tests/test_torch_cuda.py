@@ -1432,3 +1432,32 @@ def test_gan_step_with_the_bf16_critic_card_equals_cpu(dev):
             else:
                 assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
     assert np.concatenate(signs).mean() >= 0.99
+
+
+# -- the offline evaluation suite: card against CPU --------------------------
+
+@pytest.mark.parametrize("pool8", [True, False])
+@pytest.mark.parametrize("mode", ["radar", "gauge"])
+def test_offline_suite_card_equals_cpu(dev, mode, pool8):
+    """run_exp1 and exp3's metrics on the card against the CPU on the same
+    stores (a missing and a short event, non-finite pixels)."""
+    from p2igan_tpu_torch.experiments.compare import suite_mismatches
+    from p2igan_tpu_torch.experiments.exp1 import run_exp1
+    from p2igan_tpu_torch.experiments.exp3 import exp3_metrics
+
+    rng = np.random.default_rng(4)
+    truth = {f"event_{i + 1:02d}": (rng.random((12, 48, 48)) * 160).astype(np.float32)
+             for i in range(3)}
+    preds = {"A": {k: (v + rng.normal(0, 10, v.shape)).astype(np.float32)[..., None]
+                   for k, v in truth.items()},
+             "B": {"event_01": truth["event_01"][:7] * np.float32(1.1),
+                   "event_03": truth["event_03"] + np.float32(4.0)}}
+    preds["A"]["event_02"][1, 5:9] = np.nan
+    mask = np.zeros((40, 40), bool)
+    mask.reshape(-1)[rng.choice(1600, 79, replace=False)] = True
+    got, want = (run_exp1(preds, truth, mask, mode, 40, use_pool8=pool8, device=d)
+                 for d in (dev, "cpu"))
+    assert not suite_mismatches(got, want)
+    assert got["A"]["CAT_0.5"]["CSI"] > 0.3
+    got, want = (exp3_metrics(preds, truth, mask, mode, 40, device=d) for d in (dev, "cpu"))
+    assert not suite_mismatches(got, want)

@@ -1,7 +1,9 @@
 """The PyTorch port must run where jax, flax, optax, msgpack, matplotlib, h5py
 and the JAX package ``p2igan_tpu`` are absent (it reads JAX checkpoints with
 its own decoder): it imports none of them and loads no
-file of ``p2igan_tpu/`` by path; its config JSONs are its own copies."""
+file of ``p2igan_tpu/`` by path; its config JSONs are its own copies. Only
+the named functions that open an ``.h5`` file import h5py, and only the named
+functions that draw a figure of the offline suite import matplotlib."""
 
 import ast
 import json
@@ -33,7 +35,7 @@ for name in mods:
     importlib.import_module(name)
 for script in ("scripts/infer_torch.py", "scripts/train_torch.py",
                "scripts/make_fake_data_torch.py", "scripts/convergence_smoke_torch.py",
-               "chip_smoke.py"):
+               "scripts/quality_torch.py", "chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("probe_" + script.split("/")[-1][:-3],
                                                   script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -86,11 +88,30 @@ def test_the_new_scripts_are_among_the_scanned_files(name):
     assert REPO / "scripts" / name in PORT_FILES
 
 
+@pytest.mark.parametrize("name", ["__init__.py", "config.py", "io.py", "exp1.py", "exp2.py",
+                                  "exp3.py", "main.py", "test.py", "compare.py"])
+def test_the_offline_suite_is_among_the_scanned_files(name):
+    assert REPO / "p2igan_tpu_torch" / "experiments" / name in PORT_FILES
+
+
+def test_the_quality_script_is_among_the_scanned_files():
+    assert REPO / "scripts" / "quality_torch.py" in PORT_FILES
+
+
 # The two readers and writers of ``.h5`` event files import h5py inside the
 # function that opens such a file (the format needs it, and nothing else
-# does); everywhere else, and at any module's top level, it is blocked.
+# does); the offline suite's functions that draw a figure, and nothing else,
+# import matplotlib inside them (a GPU machine may lack it: those stages then
+# raise). Everywhere else, and at any module's top level, both are blocked.
 FORMAT_IMPORTS = {("data/stores.py", "_read_hdf5"): "h5py",
-                  ("data/fake.py", "write_h5_events"): "h5py"}
+                  ("data/fake.py", "write_h5_events"): "h5py",
+                  ("experiments/exp2.py", "build_paper_cmap"): "matplotlib",
+                  ("experiments/exp2.py", "save_combo_gif"): "matplotlib",
+                  ("experiments/exp2.py", "_paper_figure"): "matplotlib",
+                  ("experiments/exp3.py", "scatter_panels"): "matplotlib",
+                  ("experiments/exp3.py", "logfreq_plot"): "matplotlib",
+                  ("experiments/exp3.py", "nse_boxplot"): "matplotlib",
+                  ("experiments/test.py", "plot_hist"): "matplotlib"}
 
 
 def _format_import_ok(path: Path, func, name: str) -> bool:
@@ -165,14 +186,29 @@ def test_the_scan_finds_what_it_should(tmp_path):
     assert len(got) == 3, got  # _read_hdf5 here is not data/stores.py's
 
 
+def _functions_importing(rel: str, package: str) -> list:
+    tree = ast.parse((REPO / "p2igan_tpu_torch" / rel).read_text())
+    names = lambda n: ([a.name for a in n.names] if isinstance(n, ast.Import)  # noqa: E731
+                       else [n.module or ""] if isinstance(n, ast.ImportFrom) else [])
+    return [f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+            and any(m.split(".")[0] == package for n in ast.walk(f) for m in names(n))]
+
+
 def test_the_scan_lets_only_the_h5_readers_import_h5py():
-    found = {rel: [] for rel, _ in FORMAT_IMPORTS}
-    for (rel, func), name in FORMAT_IMPORTS.items():
-        tree = ast.parse((REPO / "p2igan_tpu_torch" / rel).read_text())
-        found[rel] += [f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
-                       and any(isinstance(n, ast.Import) and n.names[0].name == name
-                               for n in ast.walk(f))]
+    found = {rel: _functions_importing(rel, "h5py")
+             for (rel, _), name in FORMAT_IMPORTS.items() if name == "h5py"}
     assert found == {"data/stores.py": ["_read_hdf5"], "data/fake.py": ["write_h5_events"]}
+
+
+def test_the_scan_lets_only_the_figure_functions_import_matplotlib():
+    found = {rel: sorted(_functions_importing(rel, "matplotlib"))
+             for rel in ("experiments/exp2.py", "experiments/exp3.py", "experiments/test.py")}
+    assert found == {
+        "experiments/exp2.py": ["_paper_figure", "build_paper_cmap", "save_combo_gif"],
+        "experiments/exp3.py": ["logfreq_plot", "nse_boxplot", "scatter_panels"],
+        "experiments/test.py": ["plot_hist"]}
+    assert found == {rel: sorted(f for (r, f), name in FORMAT_IMPORTS.items()
+                                 if r == rel and name == "matplotlib") for rel in found}
 
 
 CONFIG_DIR = REPO / "p2igan_tpu_torch" / "config"
