@@ -234,6 +234,14 @@
    within rtol 1e-5); one line a method of the card's scores; ``run_exp3``
    raises an ImportError naming matplotlib where it is not installed (else
    it draws its four figures); the phase's seconds.
+9d. The measurement scripts (``measurement_scripts``, at most 20 s): each
+   script's ``main`` as a user calls it, at a small geometry (32x32, T=16,
+   base 64): ``scripts/profile_infer_torch.py`` (its serving trace's
+   families add up to the window's device total within 1%, at most 5% of
+   it is of no family, and #1, #2 and #3 appear in it by name) and ``scripts/roofline_train_torch.py`` at batch
+   2 (every block's and the step's share of its bound <= 1.05: a higher one
+   means the count is wrong); where h5py is absent, ``scripts/tozarr_torch.py``
+   on an ``.h5`` file exits non-zero naming h5py.
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time, null only for #9, whose chain fits in no card's memory at
@@ -309,6 +317,7 @@ from p2igan_tpu_torch.ops.wendland import build_phi_space
 from p2igan_tpu_torch.training import trainer as trainer_module
 from p2igan_tpu_torch.training.checkpoint import load_checkpoint_raw
 from p2igan_tpu_torch.training.trainer import device_busy_us
+from p2igan_tpu_torch.utils import profiling
 from p2igan_tpu_torch.utils.tracking import get_tracker
 
 REPO = Path(__file__).resolve().parent
@@ -520,13 +529,9 @@ def check_gauge_topk(masks) -> dict:
 
 
 def topk_bound(batch: int, slots: int) -> dict:
-    """#1 for ``batch`` masks of ``slots`` slots: two coordinates a pixel and
-    three numbers a slot in, k distances and k slot ids a pixel out; 6 flops a
-    (pixel, slot) distance and its compare with the k-th place (the one pass;
-    its rare entries are not counted)."""
-    hw = H * W
-    return bound(4 * (2 * hw + 3 * batch * slots + 2 * K * batch * hw),
-                 batch * hw * slots * 7)
+    """#1 for ``batch`` masks of ``slots`` slots (``profiling.topk_count``)."""
+    ops, nbytes = profiling.topk_count(H * W, batch, slots, K)
+    return bound(nbytes, ops)
 
 
 def topk_device_ms(args) -> float:
@@ -604,13 +609,9 @@ def combine_device_ms(fn, gd2_t, gsel_t, data, out_bytes: int) -> float:
 
 
 def combine_bound(n: int) -> dict:
-    """Forward and backward of the combine move the same bytes: the (k, HW)
-    distances and slots, the (N, D, G) tables and the (N, D, HW) field. Per
-    (z, pixel): kf*k = 20 candidate distances (8 flops with the sqrt and the
-    weight), k selection rounds over them, and 2 k flops a window."""
-    hw, cand = H * W, 5 * K
-    return bound(4 * (2 * K * hw + n * LENGTH * G + n * LENGTH * hw),
-                 LENGTH * hw * (cand * 8 + K * cand + 2 * K * n))
+    """#2 and #4 over ``n`` windows (``profiling.combine_count``)."""
+    ops, nbytes = profiling.combine_count(n, LENGTH, G, H * W, K)
+    return bound(nbytes, ops)
 
 
 def graph_ms(fn, copies: int, reps: int = 10) -> float:
@@ -3713,6 +3714,66 @@ def offline_suite(tmp: Path, card: str) -> None:
     print(f"offline_suite phase: {time.perf_counter() - t0:.1f} s on {card}")
 
 
+SCRIPT_GEOMETRY = ["--device", "cuda", "--size", "32", "--frames", str(LENGTH),
+                   "--base", str(BASE)]
+# the kernels of the stis serving path, by their csrc sources in a trace's families
+SERVING_SOURCES = ("gauge_topk.cu", "combine_table_multi.cu", "pool_dup.cu")
+# the most of the serving trace's device time its classifier may leave as other
+OTHER_SHARE = 0.05
+
+
+def measurement_scripts(tmp: Path, card: str) -> None:
+    """The measurement scripts on the card at a small geometry (docstring
+    item 9d)."""
+    t0 = time.perf_counter()
+    res = load_script("profile_infer_torch").main(SCRIPT_GEOMETRY + [
+        "--event-frames", "32", "--store-events", "2", "--reps", "3", "--trace-reps", "2"])
+    fams = res["families"]
+    total, summed = fams["device_total_us"], fams["family_sum_us"]
+    if not (total > 0 and abs(summed - total) <= 0.01 * total):
+        fail(f"profile_infer_torch: the families add up to {summed} us, the window's "
+             f"device total is {total} us")
+    other = fams["families"].get(profiling.OTHER, 0.0)
+    if not other <= OTHER_SHARE * total:
+        fail(f"profile_infer_torch: {other} us of the window's {total} us are of no "
+             f"family (a kernel the classifier does not know): " + ", ".join(sorted(
+                 {r["name"][:80] for r in fams["records"] if r["family"] == profiling.OTHER})))
+    for src in SERVING_SOURCES:
+        if not fams["families"].get(profiling.own_family(src), 0.0) > 0:
+            fail(f"profile_infer_torch: no device time of {src} in the serving trace: "
+                 f"{sorted(fams['families'])}")
+    print(f"profile_infer_torch on {card}: families {summed:.1f} us of the window's "
+          f"{total:.1f} us, other {other:.1f} us; " + ", ".join(
+              f"{src} {fams['families'][profiling.own_family(src)]:.1f} us"
+              for src in SERVING_SOURCES))
+    roof = load_script("roofline_train_torch").main(SCRIPT_GEOMETRY + [
+        "--batch", "2", "--reps", "3"])
+    shares = {name: row[3] / row[0] for name, row in roof["rows"].items()}
+    step_ms, _, _, step_bound = roof["step"]
+    shares["step"] = step_bound / step_ms
+    if not all(0.0 <= v <= 1.05 for v in shares.values()):
+        fail(f"roofline_train_torch: a share of the bound above 1.05 (a wrong count): "
+             f"{shares}")
+    print(f"roofline_train_torch on {card}: shares of the bound "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+    if importlib.util.find_spec("h5py") is None:
+        h5_dir = tmp / "h5_events"
+        h5_dir.mkdir(exist_ok=True)
+        (h5_dir / "1.h5").write_bytes(b"not read: h5py is absent")
+        try:
+            load_script("tozarr_torch").main(["--h5-dir", str(h5_dir),
+                                              "--output", str(tmp / "h5.zarr")])
+        except SystemExit as exc:
+            if not exc.code or "h5py" not in str(exc.code):
+                fail(f"tozarr_torch without h5py exited with {exc.code!r}")
+            print(f"tozarr_torch without h5py exits non-zero: {exc.code}")
+        else:
+            fail("tozarr_torch converted an .h5 file without h5py")
+    else:
+        print("h5py is installed here: tozarr_torch's message without it is not checked")
+    print(f"measurement_scripts phase: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3816,6 +3877,7 @@ def main() -> int:
             paths[label], sps = train_simple(tmp, card, dev, use_gan)
             print(f"{label}: {sps:.4f} steps/s on {card}")
         offline_suite(tmp, card)
+        measurement_scripts(tmp, card)
 
     print(f"p2igan in this run on {card}: serving events/s "
           + ", ".join(f"{kind} {RATES[f'p2igan{sfx} serving']:.4f}" for kind, sfx in

@@ -35,7 +35,10 @@ for name in mods:
     importlib.import_module(name)
 for script in ("scripts/infer_torch.py", "scripts/train_torch.py",
                "scripts/make_fake_data_torch.py", "scripts/convergence_smoke_torch.py",
-               "scripts/quality_torch.py", "chip_smoke.py"):
+               "scripts/quality_torch.py", "scripts/profile_infer_torch.py",
+               "scripts/profile_train_torch.py", "scripts/roofline_train_torch.py",
+               "scripts/sweep_torch.py", "scripts/tozarr_torch.py",
+               "scripts/preprocess_torch.py", "scripts/visualize_torch.py", "chip_smoke.py"):
     spec = importlib.util.spec_from_file_location("probe_" + script.split("/")[-1][:-3],
                                                   script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -83,7 +86,11 @@ def test_the_jax_checkpoint_path_is_among_the_scanned_files(name):
     assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
 
 
-@pytest.mark.parametrize("name", ["make_fake_data_torch.py", "convergence_smoke_torch.py"])
+@pytest.mark.parametrize("name", ["make_fake_data_torch.py", "convergence_smoke_torch.py",
+                                  "profile_infer_torch.py", "profile_train_torch.py",
+                                  "roofline_train_torch.py", "sweep_torch.py",
+                                  "tozarr_torch.py", "preprocess_torch.py",
+                                  "visualize_torch.py"])
 def test_the_new_scripts_are_among_the_scanned_files(name):
     assert REPO / "scripts" / name in PORT_FILES
 
@@ -98,13 +105,16 @@ def test_the_quality_script_is_among_the_scanned_files():
     assert REPO / "scripts" / "quality_torch.py" in PORT_FILES
 
 
-# The two readers and writers of ``.h5`` event files import h5py inside the
-# function that opens such a file (the format needs it, and nothing else
-# does); the offline suite's functions that draw a figure, and nothing else,
+# The two readers and writers of ``.h5`` event files, and the readers of the
+# two converter scripts, import h5py inside the function that opens such a
+# file (the format needs it, and nothing else does); the offline suite's
+# functions that draw a figure, and nothing else,
 # import matplotlib inside them (a GPU machine may lack it: those stages then
 # raise). Everywhere else, and at any module's top level, both are blocked.
 FORMAT_IMPORTS = {("data/stores.py", "_read_hdf5"): "h5py",
                   ("data/fake.py", "write_h5_events"): "h5py",
+                  ("scripts/tozarr_torch.py", "read_h5_frames"): "h5py",
+                  ("scripts/preprocess_torch.py", "read_h5_frames"): "h5py",
                   ("experiments/exp2.py", "build_paper_cmap"): "matplotlib",
                   ("experiments/exp2.py", "save_combo_gif"): "matplotlib",
                   ("experiments/exp2.py", "_paper_figure"): "matplotlib",
@@ -114,9 +124,22 @@ FORMAT_IMPORTS = {("data/stores.py", "_read_hdf5"): "h5py",
                   ("experiments/test.py", "plot_hist"): "matplotlib"}
 
 
+def _rel(path: Path) -> str:
+    """A file's key in ``FORMAT_IMPORTS``: relative to the package, or
+    ``scripts/<name>`` for a script."""
+    try:
+        return path.relative_to(REPO / "p2igan_tpu_torch").as_posix()
+    except ValueError:
+        return path.relative_to(REPO).as_posix()
+
+
+def _path(rel: str) -> Path:
+    return REPO / rel if rel.startswith("scripts/") else REPO / "p2igan_tpu_torch" / rel
+
+
 def _format_import_ok(path: Path, func, name: str) -> bool:
     try:
-        rel = path.relative_to(REPO / "p2igan_tpu_torch").as_posix()
+        rel = _rel(path)
     except ValueError:
         return False
     return func is not None and FORMAT_IMPORTS.get((rel, func)) == name.split(".")[0]
@@ -187,7 +210,7 @@ def test_the_scan_finds_what_it_should(tmp_path):
 
 
 def _functions_importing(rel: str, package: str) -> list:
-    tree = ast.parse((REPO / "p2igan_tpu_torch" / rel).read_text())
+    tree = ast.parse(_path(rel).read_text())
     names = lambda n: ([a.name for a in n.names] if isinstance(n, ast.Import)  # noqa: E731
                        else [n.module or ""] if isinstance(n, ast.ImportFrom) else [])
     return [f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
@@ -197,7 +220,9 @@ def _functions_importing(rel: str, package: str) -> list:
 def test_the_scan_lets_only_the_h5_readers_import_h5py():
     found = {rel: _functions_importing(rel, "h5py")
              for (rel, _), name in FORMAT_IMPORTS.items() if name == "h5py"}
-    assert found == {"data/stores.py": ["_read_hdf5"], "data/fake.py": ["write_h5_events"]}
+    assert found == {"data/stores.py": ["_read_hdf5"], "data/fake.py": ["write_h5_events"],
+                     "scripts/tozarr_torch.py": ["read_h5_frames"],
+                     "scripts/preprocess_torch.py": ["read_h5_frames"]}
 
 
 def test_the_scan_lets_only_the_figure_functions_import_matplotlib():
