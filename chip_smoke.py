@@ -4,7 +4,8 @@
 
 1. Prints the card (nvidia-smi name and power limit) and versions, then
    builds the CUDA kernels from ``p2igan_tpu_torch/csrc`` (one nvcc per source,
-   in parallel).
+   in parallel) and the host-IO core from ``p2igan_tpu_torch/native/p2io.cpp``
+   (g++), each with its seconds.
 2. Holds each kernel against its plain PyTorch version on the card and times
    both (median of CUDA-event timings):
    - at the shapes of the stis serving path (p2igan_baseline_eval.json:
@@ -97,7 +98,15 @@
      forward's plain version is the chain of three ``torch.matmul`` products,
      so its time is also printed as ``cublas_chain_ms``; the backward's rate
      against the float32 bound and the 3xTF32 ideal;
-   - times the host input pipeline alone on the training store (windows/s);
+   - the host-IO core (``native_io``: ``data/native.py``, the reader of
+     every training window and the writer of every zstd chunk): a fresh g++
+     build timed; every window of the training store (5 events x 49 windows
+     of 16x128x128 uint8, zstd chunks of (16, 128, 128)) through the core,
+     bitwise equal to the pure-Python chunk loop; ms a window of both on 1
+     and on 4 threads, in turns; the host input pipeline alone (windows/s
+     on the loader's 4 threads) and its stages on one thread (read,
+     decode-normalise-mask, collate); every chunk of the served stis store
+     equal to ctypes' ``ZSTD_compress`` of its data, byte for byte;
    - serves the two fake events through ``scripts/infer_torch.py`` with
      ``dk_gauge.json`` and ``stdk_gauge.json``, checks the stores, the launch
      count and a 16-frame event against the port's plain CPU path;
@@ -267,6 +276,7 @@
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 import hashlib
 import importlib.util
@@ -276,16 +286,18 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from p2igan_tpu_torch.config import load_config
-from p2igan_tpu_torch.data import fake, zarrlite
-from p2igan_tpu_torch.data.datamodule import P2IDataModule
+from p2igan_tpu_torch.data import fake, native, zarrlite
+from p2igan_tpu_torch.data.datamodule import P2IDataModule, collate_pad_last
 from p2igan_tpu_torch.data.masks import create_mask_np
 from p2igan_tpu_torch.data.stores import store_compressor
 from p2igan_tpu_torch.experiments import main as experiments_main
@@ -2960,18 +2972,137 @@ def write_dk_serving(tmp: Path, model: str) -> tuple:
     return cfg_path, checkpoint
 
 
-def host_loader_rate(tmp: Path, cfg: dict, label: str) -> float:
-    """Windows/s of the host input pipeline alone (zarr window read, crop,
-    /255, mask, collate; float mode, the config's 4 loader threads) on the
-    training store: what the steps can be fed with."""
-    loader = P2IDataModule(cfg).train_dataloader()
+def time_reads(ds) -> dict:
+    """Wrap every event's frames array of the window dataset ``ds`` so that
+    each window read adds its seconds, from any loader thread, to the
+    returned ``{"s": ...}``."""
+    clock, lock = {"s": 0.0}, threading.Lock()
+
+    class Timed:
+        def __init__(self, arr):
+            self.arr, self.shape = arr, arr.shape
+
+        def __getitem__(self, key):
+            t0 = time.perf_counter()
+            out = self.arr[key]
+            dt = time.perf_counter() - t0
+            with lock:
+                clock["s"] += dt
+            return out
+
+    for key in ds.event_keys:
+        ds._frames_cache[key] = Timed(ds._frames(key))
+    return clock
+
+
+def loader_pass(loader) -> tuple:
+    """One epoch of the loader: (windows, windows/s)."""
     t0 = time.perf_counter()
     windows = sum(batch[0].shape[0] for batch in loader)
-    rate = windows / (time.perf_counter() - t0)
+    return windows, windows / (time.perf_counter() - t0)
+
+
+def host_loader_rate(tmp: Path, cfg: dict, label: str) -> float:
+    """Windows/s of the host input pipeline alone (float mode, the config's
+    4 loader threads) on the training store: what the steps can be fed with.
+    Then its stages: the window read (the host-IO core), decode-normalise-mask
+    (the rest of a window: /255, the mask drawn and applied) and the collate,
+    in ms a window on one thread, and the read's thread time a window in the
+    loader's threads."""
+    loader = P2IDataModule(cfg).train_dataloader()
+    subset = loader.dataset
+    clock = time_reads(subset.dataset)
+    windows, rate = loader_pass(loader)
+    read_in_threads = clock["s"] / windows * 1e3
+    clock["s"] = item_s = collate_s = 0.0
+    n = len(subset)
+    for lo in range(0, n, TRAIN_BATCH):
+        t0 = time.perf_counter()
+        items = [subset.__getitem__(i, rng=np.random.default_rng((SEED, i)))
+                 for i in range(lo, min(lo + TRAIN_BATCH, n))]
+        t1 = time.perf_counter()
+        collate_pad_last(items)
+        item_s, collate_s = item_s + t1 - t0, collate_s + time.perf_counter() - t1
+    read_ms, collate_ms = clock["s"] / n * 1e3, collate_s / n * 1e3
+    rest_ms = item_s / n * 1e3 - read_ms
+    total = read_ms + rest_ms + collate_ms
     print(f"host input pipeline alone ({label}): {windows} windows of {LENGTH}x{H}x{W} in "
-          f"batches of {TRAIN_BATCH}: {rate:.1f} windows/s "
-          f"({rate / TRAIN_BATCH:.2f} batches/s)")
+          f"batches of {TRAIN_BATCH} on {loader.num_workers} threads: {rate:.1f} windows/s "
+          f"({rate / TRAIN_BATCH:.2f} batches/s), the read {read_in_threads:.4f} ms of thread "
+          f"time a window; on one thread a window: read {read_ms:.4f} ms (host-IO core), "
+          f"decode-normalise-mask {rest_ms:.4f}, collate {collate_ms:.4f} (sum {total:.4f} ms: "
+          f"{1e3 / total:.1f} windows/s)")
     return rate
+
+
+def native_io(tmp: Path, card: str) -> None:
+    """The host-IO core (``data/native.py``, ``native/p2io.cpp``): a fresh g++
+    build of its source, timed; every window of the training store read
+    through the core, bitwise equal to the pure-Python chunk loop; ms a window
+    of both on 1 and on 4 threads, in turns (core, plain, plain, core); the
+    host input pipeline and its stages; the chunk bytes of the served stis
+    store equal to ctypes' ``ZSTD_compress`` of their data."""
+    t_phase = t0 = time.perf_counter()
+    native.build(native._SRC, tmp / "libp2io_fresh.so")
+    print(f"host-IO core: g++ build of {native._SRC.relative_to(REPO)} in "
+          f"{time.perf_counter() - t0:.2f} s; the loaded core {native.library_path().name}")
+    cfg = write_train_tree(tmp, DK_FAMILY["dk"][1])
+    root = zarrlite.open(cfg["data"]["train"]["data_root"], mode="r")
+    events = [root["events"][key]["frames"] for key in sorted(root["events"].keys())]
+    windows = [(events[e], (s, 0, 0), (s + n, H, W))
+               for e, s, n in root["index"]["windows"][:].tolist()]
+    for arr, starts, stops in windows:
+        if not arr._native_reads(starts, stops):
+            fail(f"the training window {starts} is not read by the host-IO core")
+        if not np.array_equal(arr._read_native(starts, stops), arr._read_plain(starts, stops)):
+            fail(f"the host-IO core's window {starts} differs from the plain chunk loop")
+    print(f"host-IO core: all {len(windows)} training windows ({LENGTH}x{H}x{W} uint8, "
+          f"chunks {events[0].chunks}, codec {events[0].compressor['id']}) bitwise equal to "
+          f"the plain chunk loop")
+
+    def read_ms(method: str, threads: int) -> float:
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(threads) as pool:
+            for _ in pool.map(lambda w: getattr(w[0], method)(w[1], w[2]), windows):
+                pass
+        return (time.perf_counter() - t0) / len(windows) * 1e3
+
+    turns = {}
+    for method in ("_read_native", "_read_plain", "_read_plain", "_read_native"):
+        for threads in (1, 4):
+            turns.setdefault((method, threads), []).append(read_ms(method, threads))
+    for threads in (1, 4):
+        core, plain = turns["_read_native", threads], turns["_read_plain", threads]
+        print(f"host-IO read on {threads} thread(s), ms of wall time a window (two turns): "
+              f"core {core[0]:.4f} {core[1]:.4f}, plain chunk loop {plain[0]:.4f} "
+              f"{plain[1]:.4f}; plain / core {sum(plain) / sum(core):.3f} on {card}")
+    host_loader_rate(tmp, cfg, "stis gauge file")
+    rates = {}
+    for core in (True, False, False, True):
+        plain = mock.patch.object(zarrlite.Array, "_native_reads", lambda *args: False)
+        with contextlib.nullcontext() if core else plain:
+            rates.setdefault(core, []).append(
+                loader_pass(P2IDataModule(cfg).train_dataloader())[1])
+    print(f"host input pipeline alone, windows/s on the loader's threads in turns: "
+          f"reads through the core {rates[True][0]:.1f} {rates[True][1]:.1f}, through the "
+          f"plain chunk loop {rates[False][0]:.1f} {rates[False][1]:.1f}; core / plain "
+          f"{sum(rates[True]) / sum(rates[False]):.3f} on {card}")
+    served = zarrlite.open(tmp / "served_p2igan.zarr", mode="r")
+    n_chunks = 0
+    for key in served.array_keys():
+        arr = served[key]
+        if (arr.compressor or {}).get("id") != "zstd":
+            fail(f"the served store's {key} is not zstd: {arr.compressor}")
+        level = int(arr.compressor.get("level", 1))
+        for path in sorted(p for p in arr.path.iterdir() if not p.name.startswith(".")):
+            blob = path.read_bytes()
+            data = zarrlite.decompress(blob, arr.compressor, arr._chunk_nbytes())
+            if zarrlite._zstd_compress_plain(data, level) != blob:
+                fail(f"the served chunk {path} differs from ctypes' ZSTD_compress")
+            n_chunks += 1
+    print(f"host-IO write: the {n_chunks} chunks of the served stis store equal ctypes' "
+          f"ZSTD_compress of their data at level {level} byte for byte")
+    print(f"native_io phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def train_family(tmp: Path, card: str, dev, label: str, cfg: dict, expected) -> tuple:
@@ -3933,6 +4064,10 @@ def main() -> int:
     for line in cuda_lib.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    native.library()
+    print(f"host-IO core built/loaded in {time.perf_counter() - t0:.2f} s: "
+          f"{native.library_path().name}")
 
     masks = gauge_masks(dev)
     results = {"gauge_topk": check_gauge_topk(masks),
@@ -4001,7 +4136,7 @@ def main() -> int:
         pool_bf16["launches"] = paths["p2igan serving bf16"]["maxpool2_duplicate bf16"]
         results["maxpool2_duplicate"]["bf16"] = pool_bf16
         jax_checkpoint(tmp, card, dev)
-        host_loader_rate(tmp, write_train_tree(tmp, DK_FAMILY["dk"][1]), "stis gauge file")
+        native_io(tmp, card)
         for model in DK_FAMILY:
             cfg_path, checkpoint = write_dk_serving(tmp, model)
             paths[f"{model} serving"], events_per_s = serve(

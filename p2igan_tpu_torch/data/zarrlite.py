@@ -9,8 +9,13 @@ stores written by the real ``zarr`` library:
 
   * directory stores with ``.zgroup`` / ``.zarray`` / ``.zattrs`` JSON metadata
   * C-order chunks keyed ``"i.j.k"`` (configurable ``dimension_separator``)
-  * codecs: ``null`` (raw), ``zlib``, ``zstd`` and ``blosc`` — the latter two
-    via the system ``libzstd`` / ``libblosc`` shared libraries
+  * codecs: ``null`` (raw), ``zlib``, ``gzip``, ``zstd`` and ``blosc`` — the
+    latter two via the system ``libzstd`` / ``libblosc`` shared libraries
+  * the port's host-IO core (``data/native.py``, ``native/p2io.cpp``) reads
+    every uint8 3-D window of a fill-0 array (the training read: its chunks
+    decoded in C++ on the calling thread, without the interpreter lock) and
+    compresses every zstd chunk; the pure-Python chunk loop
+    (``Array._read_plain``) reads every other array
   * basic (integer / contiguous-slice) indexing for read and write, which is
     everything the data pipeline uses (minimal chunk-aligned window reads)
 
@@ -18,9 +23,9 @@ API mirrors the ``zarr`` calls used by the reference: ``open``, ``open_group``,
 ``Group.create_dataset / create_group / array_keys / group_keys / attrs``,
 ``Array.__getitem__ / __setitem__ / shape / dtype / attrs``.
 
-The port's own copy of ``p2igan_tpu/data/zarrlite.py``, on its pure-Python
-chunk loop: the C++ window reader of that package (``native/p2io.cpp``) is not
-carried over.
+The port's own copy of ``p2igan_tpu/data/zarrlite.py``, with its own host-IO
+core. Unlike that package's, a core that fails to build or a chunk that fails
+to decode raises: nothing falls back to the Python loop.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import native
 
 # ---------------------------------------------------------------------------
 # Codecs
@@ -95,14 +102,7 @@ def compress(data: bytes, compressor: Optional[Dict[str, Any]], itemsize: int = 
 
         return gzip.compress(data, compressor.get("level", 1))
     if cid == "zstd":
-        level = int(compressor.get("level", 1))
-        lib = _load_zstd()
-        bound = lib.ZSTD_compressBound(len(data))
-        out = ctypes.create_string_buffer(bound)
-        n = lib.ZSTD_compress(out, bound, data, len(data), level)
-        if lib.ZSTD_isError(n):
-            raise RuntimeError("zstd compression failed")
-        return out.raw[:n]
+        return native.zstd_compress(data, int(compressor.get("level", 1)))
     if cid == "blosc":
         lib = _load_blosc()
         destsize = len(data) + 16 + 64  # BLOSC_MAX_OVERHEAD
@@ -117,6 +117,18 @@ def compress(data: bytes, compressor: Optional[Dict[str, Any]], itemsize: int = 
             raise RuntimeError("blosc compression failed")
         return out.raw[:n]
     raise ValueError(f"Unsupported compressor: {compressor}")
+
+
+def _zstd_compress_plain(data: bytes, level: int) -> bytes:
+    """``ZSTD_compress`` through ctypes: the plain version of the core's
+    ``native.zstd_compress``, byte for byte."""
+    lib = _load_zstd()
+    bound = lib.ZSTD_compressBound(len(data))
+    out = ctypes.create_string_buffer(bound)
+    n = lib.ZSTD_compress(out, bound, data, len(data), level)
+    if lib.ZSTD_isError(n):
+        raise RuntimeError("zstd compression failed")
+    return out.raw[:n]
 
 
 def decompress(data: bytes, compressor: Optional[Dict[str, Any]], nbytes: int) -> bytes:
@@ -290,12 +302,39 @@ class Array:
 
     def __getitem__(self, key: Any) -> np.ndarray:
         starts, stops, out_shape, keep = _normalize_key(key, self.shape)
+        if self._native_reads(starts, stops):
+            return self._read_native(starts, stops).reshape(out_shape)
+        return self._read_plain(starts, stops).reshape(out_shape)
+
+    def _native_reads(self, starts, stops) -> bool:
+        """Whether the host-IO core reads this window: a uint8 3-D fill-0
+        array in a codec the core decodes, and a window that is not empty."""
+        comp_id = None if self.compressor is None else self.compressor.get("id")
+        return (self.dtype == np.uint8 and self.ndim == 3 and self.fill_value == 0
+                and comp_id in native.CODECS
+                and all(stop > start for start, stop in zip(starts, stops)))
+
+    def _read_native(self, starts, stops) -> np.ndarray:
+        """The window through the host-IO core (its chunks decoded in C++,
+        without the interpreter lock); raises naming a chunk that cannot be
+        read or decoded."""
+        chunk_list = []
+        for cidx in _chunks_overlapping(starts, stops, self.chunks):
+            p = self._chunk_path(cidx)
+            chunk_list.append((cidx, p if p.exists() else None))
+        comp_id = None if self.compressor is None else self.compressor.get("id")
+        window = tuple(stop - start for start, stop in zip(starts, stops))
+        return native.read_window_u8(chunk_list, self.chunks, starts, window, comp_id)
+
+    def _read_plain(self, starts, stops) -> np.ndarray:
+        """The window by the pure-Python chunk loop: every array the core
+        does not read, and the plain version of the core's reads."""
         out = np.empty([stop - start for start, stop in zip(starts, stops)], dtype=self.dtype)
         for cidx in _chunks_overlapping(starts, stops, self.chunks):
             chunk = self._read_chunk(cidx)
             src_sel, dst_sel = _chunk_selections(cidx, self.chunks, starts, stops, self.shape)
             out[dst_sel] = chunk[src_sel]
-        return out.reshape(out_shape)
+        return out
 
     # -- write -------------------------------------------------------------
     def __setitem__(self, key: Any, value: Any) -> None:

@@ -1,9 +1,9 @@
 """The port's own copies of the JAX package's jax-free host modules
 (``config``, ``data.zarrlite``, ``data.fake``, ``utils.tracking``,
 ``ops.wendland``) behave as their originals: the same bytes on disk, the same
-arrays back, the same dictionaries. The port's zarrlite keeps only the
-pure-Python chunk loop, so every read is held to the original's (which takes
-its C++ window reader where it can)."""
+arrays back, the same dictionaries. Each zarrlite reads uint8 3-D windows
+through its own C++ host-IO core and everything else by its Python chunk
+loop, so every read is held to the original's."""
 
 import json
 from pathlib import Path

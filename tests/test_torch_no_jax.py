@@ -17,7 +17,8 @@ REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "p2igan_tpu", "matplotlib",
            "h5py")
 PORT_FILES = sorted([*(REPO / "p2igan_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
-                     *(REPO / "scripts").glob("*_torch.py")])
+                     *(REPO / "scripts").glob("*_torch.py"),
+                     *(REPO / "scripts").glob("time_*.py")])
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -258,3 +259,29 @@ def test_port_ships_the_configs_it_runs():
 
 def test_the_dry_run_script_is_among_the_scanned_files():
     assert REPO / "scripts" / "dryrun_multichip_torch.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("name", ["data/native.py", "data/zarrlite.py"])
+def test_the_host_io_core_is_among_the_scanned_files(name):
+    assert REPO / "p2igan_tpu_torch" / name in PORT_FILES
+
+
+@pytest.mark.parametrize("name", ["time_native_io.py", "time_dk_tail_bwd.py"])
+def test_the_timing_scripts_are_among_the_scanned_files(name):
+    assert REPO / "scripts" / name in PORT_FILES
+
+
+def test_the_host_io_core_builds_from_the_port_source(tmp_path):
+    """The port's core is compiled from ``p2igan_tpu_torch/native/p2io.cpp``,
+    never from the JAX package's ``native/`` directory."""
+    from p2igan_tpu_torch.data import native
+
+    ours = REPO / "p2igan_tpu_torch" / "native" / "p2io.cpp"
+    assert native._SRC == ours and ours.exists()
+    cmd = native.build_command(native._SRC, tmp_path / "libp2io.so")
+    sources = [Path(arg) for arg in cmd if arg.endswith((".cpp", ".cc", ".c"))]
+    assert sources == [ours]
+    assert not any(Path(arg).is_relative_to(REPO / "native")
+                   or Path(arg).is_relative_to(REPO / "p2igan_tpu") for arg in cmd)
+    assert native.library_path() == native.library_path(ours)
+    assert native.library_path() != native.library_path(REPO / "native" / "p2io.cpp")
