@@ -265,6 +265,12 @@
    2 (every block's and the step's share of its bound <= 1.05: a higher one
    means the count is wrong); where h5py is absent, ``scripts/tozarr_torch.py``
    on an ``.h5`` file exits non-zero naming h5py.
+9e. The port's bench (``bench_port``, at most 15 s): ``bench_torch.py``'s
+   ``main`` in process at the same small geometry: its four stages in
+   order with no ``_error``, each stage's launches of the kernels its models
+   run (inference #1-#3; train #1-#4; families #12, #14, #15; family_train
+   #12, #13), every rate above 0 and ``mfu_*`` in (0, 1.05]; its figures
+   beside the card.
 10. Prints the card, a JSON line of the fifteen kernels (time, plain version's
    time, the bound from this run's shapes and what sets it, the library
    chain's time, null only for #9, whose chain fits in no card's memory at
@@ -280,6 +286,7 @@ import concurrent.futures as cf
 import contextlib
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -4043,6 +4050,55 @@ def measurement_scripts(tmp: Path, card: str) -> None:
     print(f"measurement_scripts phase: {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# the stages of bench_torch.py and, by stage, the kernels the phase requires launched
+BENCH_STAGES = {
+    "inference": ("gauge_topk", "combine_table_multi", "maxpool2_duplicate"),
+    "train": ("gauge_topk", "combine_table_multi", "maxpool2_duplicate",
+              "combine_table_multi_bwd"),
+    "families": ("mlp_tail_fused", "enc0_conv3d_leaky", "conv3d_cout1_sigmoid"),
+    "family_train": ("mlp_tail_fused", "mlp_tail_bwd"),
+}
+BENCH_RATES = ("events_per_sec_batched", "gan_steps_per_sec", "gan_steps_per_sec_d3d_bf16",
+               "simple_events_per_sec", "dk_events_per_sec", "stdk_events_per_sec",
+               "dk_train_steps_per_sec", "stdk_train_steps_per_sec",
+               "simple_train_steps_per_sec")
+
+
+def bench_port(card: str) -> None:
+    """``bench_torch.py``'s main on the card at a small geometry (docstring
+    item 9e)."""
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("bench_torch", REPO / "bench_torch.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(SCRIPT_GEOMETRY)
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    final = lines[-1] if lines else {}
+    if rc != 0 or [line["stages_done"] for line in lines] != [
+            list(BENCH_STAGES)[:i + 1] for i in range(len(BENCH_STAGES))]:
+        fail(f"bench_torch: rc {rc}, stages {[line['stages_done'] for line in lines]}, "
+             f"errors {[(k, v) for k, v in final.items() if k.endswith('_error')]}")
+    errors = [key for key in final if key.endswith("_error")]
+    if errors:
+        fail(f"bench_torch recorded {[(k, final[k]) for k in errors]}")
+    for stage, names in BENCH_STAGES.items():
+        launched = final[f"{stage}_launches"]
+        if not all(launched.get(name, 0) > 0 for name in names):
+            fail(f"bench_torch {stage}: launches {launched}, needs {names}")
+    if not all(final[key] > 0 for key in BENCH_RATES):
+        fail(f"bench_torch: a rate <= 0: {({key: final[key] for key in BENCH_RATES})}")
+    mfu = {key: final[key] for key in ("mfu_inference", "mfu_train")}
+    if not all(0.0 < v <= 1.05 for v in mfu.values()):
+        fail(f"bench_torch: a share of the float32 peak outside (0, 1.05]: {mfu}")
+    print(f"bench_torch at 32x32 on {card}: " + ", ".join(
+        f"{key} {final[key]}" for key in BENCH_RATES) + ", " + ", ".join(
+        f"{key} {v}" for key, v in mfu.items()) + "; launches " + "; ".join(
+        f"{stage} {final[f'{stage}_launches']}" for stage in BENCH_STAGES))
+    print(f"bench_port phase: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4152,6 +4208,7 @@ def main() -> int:
             print(f"{label}: {sps:.4f} steps/s on {card}")
         offline_suite(tmp, card)
         measurement_scripts(tmp, card)
+        bench_port(card)
 
     print(f"p2igan in this run on {card}: serving events/s "
           + ", ".join(f"{kind} {RATES[f'p2igan{sfx} serving']:.4f}" for kind, sfx in

@@ -486,8 +486,37 @@ def maxpool2_duplicate_count(x) -> Tuple[float, float]:
     return 0.75 * x.numel(), 1.5 * x.numel() * x.element_size()
 
 
-# (module, attribute, count) of each kernel wrapper the p2igan stis paths call;
-# the module attribute is where the callers look the wrapper up
+def mlp_tail_count(phi_part, offsets, *weights) -> Tuple[float, float]:
+    """#12: per (j, pixel) two (h, h) layers and the fc4 dot; phi, the
+    offsets and the weights in, the (J, HW) field out. ``chip_smoke.py``'s
+    bound of #12."""
+    (hw, h), J = phi_part.shape, offsets.shape[0]
+    return (float(J * hw * (4 * h * h + 4 * h)),
+            4.0 * (hw * h + J * h + 2 * h * h + 3 * h + 1 + J * hw))
+
+
+def mlp_tail_bwd_count(phi_part, offsets, g, *weights) -> Tuple[float, float]:
+    """#13: six (h, h) products a (j, pixel) (two recomputed, two transposed,
+    two weight gradients); phi, g and the weights in, the gradients out.
+    ``chip_smoke.py``'s bound of #13."""
+    (hw, h), J = phi_part.shape, offsets.shape[0]
+    return (float(J * hw * (12 * h * h + 10 * h)),
+            4.0 * (2 * hw * h + 2 * J * h + J * hw + 4 * h * h + 6 * h))
+
+
+def fused_conv_count(x, weight, bias, *a) -> Tuple[float, float]:
+    """#14 and #15: a 3x3x3 SAME convolution of channels-last x (..., Cin)
+    with the bias and the activation; x, the weights and the output once.
+    ``chip_smoke.py``'s bound of both."""
+    cin, cout = x.shape[-1], weight.shape[-1]
+    voxels = x.numel() // cin
+    return (float(voxels * cout * (2 * 27 * cin + 3)),
+            4.0 * (x.numel() + voxels * cout + weight.numel() + bias.numel()))
+
+
+# (module, attribute, count) of each kernel wrapper the p2igan stis, dk, stdk
+# and simple paths call; the module attribute is where the callers look the
+# wrapper up
 COUNTED_KERNELS = (
     ("p2igan_tpu_torch.ops.idw_factored_kernel", "gauge_topk", gauge_topk_count),
     ("p2igan_tpu_torch.ops.idw_factored_kernel", "combine_table_multi",
@@ -495,6 +524,10 @@ COUNTED_KERNELS = (
     ("p2igan_tpu_torch.ops.idw_factored_kernel", "combine_table_multi_bwd",
      combine_table_multi_bwd_count),
     ("p2igan_tpu_torch.ops.layers", "maxpool2_duplicate", maxpool2_duplicate_count),
+    ("p2igan_tpu_torch.models.dk", "mlp_tail_fused", mlp_tail_count),
+    ("p2igan_tpu_torch.ops.dk_mlp_kernel", "mlp_tail_bwd", mlp_tail_bwd_count),
+    ("p2igan_tpu_torch.models.simple", "enc0_conv3d_leaky", fused_conv_count),
+    ("p2igan_tpu_torch.models.simple", "conv3d_cout1_sigmoid", fused_conv_count),
 )
 
 
@@ -560,7 +593,9 @@ def count_ops_bytes(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
       algorithms;
     * ``kernels``: {wrapper: [calls, ops, bytes]} of the port's kernels, which
       are ctypes calls that neither mode sees (on the CPU their plain
-      versions, which are not counted: the count is the kernel's formula);
+      versions, which are not counted: the count is the kernel's formula;
+      the dk tail's plain version has no #13 call, so on the CPU its
+      backward is counted as aten ops);
     * ``bound_ms``: :func:`bound_ms` of the two;
     * ``result``: what ``fn`` returned."""
     import importlib

@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "p2igan_tpu", "matplotlib",
            "h5py")
 PORT_FILES = sorted([*(REPO / "p2igan_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
-                     *(REPO / "scripts").glob("*_torch.py"),
+                     REPO / "bench_torch.py", *(REPO / "scripts").glob("*_torch.py"),
                      *(REPO / "scripts").glob("time_*.py")])
 
 _PROBE = r"""
@@ -40,7 +40,7 @@ for script in ("scripts/infer_torch.py", "scripts/train_torch.py",
                "scripts/profile_train_torch.py", "scripts/roofline_train_torch.py",
                "scripts/sweep_torch.py", "scripts/tozarr_torch.py",
                "scripts/preprocess_torch.py", "scripts/visualize_torch.py",
-               "scripts/dryrun_multichip_torch.py", "chip_smoke.py"):
+               "scripts/dryrun_multichip_torch.py", "chip_smoke.py", "bench_torch.py"):
     spec = importlib.util.spec_from_file_location("probe_" + script.split("/")[-1][:-3],
                                                   script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -255,6 +255,10 @@ def test_port_ships_the_configs_it_runs():
     names = {p.name for p in CONFIG_DIR.glob("*.json")}
     assert {"p2igan_baseline_eval.json", "p2igan_gan_baseline_gauge.json",
             "dk_gauge.json", "stdk_gauge.json"} <= names
+
+
+def test_the_bench_is_among_the_scanned_files():
+    assert REPO / "bench_torch.py" in PORT_FILES
 
 
 def test_the_dry_run_script_is_among_the_scanned_files():
